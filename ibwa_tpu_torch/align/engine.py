@@ -1,0 +1,795 @@
+"""Batched `aln` gapped search on a torch device (port of engine_jax).
+
+Re-implements bwt_match_gap (bwtgap.c:104-264) + bwt_cal_width
+(bwtaln.c:54-78) over a read batch, exactly as
+`ibwa_tpu/align/engine_jax.py` does: a per-read entry arena whose packed
+priority key
+
+    key = score << 20 | (0xFFFFF - push_seqno)        (an int32)
+
+makes one first-minimum argmin reproduce the reference's pop order, an
+"E" entry state for bwt_match_exact_alt, persistent lanes that stream
+reads, and a host fallback (the native C++ search) for every read that
+overflows a device capacity.  See engine_jax's module docstring for the
+packed entry layout; the port keeps it bit for bit.
+
+Port conventions:
+  * u32 values are int64 tensors masked to 32 bits where they can wrap
+    (`u32.py`); int32 values are int64 tensors, and the int32 key is
+    wrapped with `wrap_i32`; the five arena planes are int32 tensors.
+  * JAX's dropped scatters (`mode="drop"` at row B/N) become masked
+    writes to rows that exist; gathers whose index JAX would clamp for
+    finished lanes are clamped here too.
+  * The step is plain torch ops on the device plus the two kernels:
+    occ4_pair / occ1_pair (K2, fm/device.py) and stack_update (K1).
+  * The persistent loop syncs with the host once per switch phase
+    (every SWITCH_K steps), never per step.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import functools
+import os
+import time
+
+import numpy as np
+import torch
+
+from ibwa_tpu.align import engine_ref
+from ibwa_tpu.align.engine_ref import Hit
+from ibwa_tpu.align.opts import (BWA_MODE_GAPE, BWA_MODE_LOGGAP,
+                                 BWA_MODE_NONSTOP, GapOpt, aln_score,
+                                 cal_maxdiff)
+from ibwa_tpu.fm.fmindex import FmIndex
+
+from ..fm.device import DeviceFmPair, build_device_pair, occ1_pair, occ4_pair
+from ..u32 import MASK, int_log2, wrap_i32
+from .stack_kernel import stack_update
+
+STATE_M, STATE_I, STATE_D, STATE_E = 0, 1, 2, 3
+INT32_MAX = 0x7FFFFFFF
+I64 = torch.int64
+
+ACAP = 256        # arena slots per read (1024 for wide budgets / small
+                  # genomes, see make_config); overflow -> host fallback
+HCAP = 64         # max hits recorded per read
+MAX_ITERS = 16384
+MAX_SEQ = 0xFFFFF  # seqno field width in the priority key
+DEV_BATCH = 1024  # persistent device lanes per dispatch
+PERSIST_N = 2048  # reads streamed through the lanes per dispatch
+E_UNROLL = 2      # exact-extension bases consumed per E pop
+ITER_CAP = 384    # pushes before a read is routed to the host search
+SWITCH_K = 16     # search steps between lane-switch phases
+HOST_FRAC_INIT = 0.30  # starting host share of a batch (hybrid); adapts
+                       # per batch; IBWA_HOST_FRAC fixes it
+HOST_CHUNK = 2048      # reads per native job
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static search parameters of one read batch."""
+
+    L: int            # padded read length
+    SL: int           # seed length (opt.seed_len)
+    NB: int           # number of score buckets
+    s_mm: int
+    s_gapo: int
+    s_gape: int
+    max_gapo: int
+    max_gape: int
+    max_del_occ: int
+    indel_end_skip: int
+    max_top2: int
+    max_entries: int
+    max_seed_diff: int
+    iter_cap: int     # per-read device step budget (tail -> host search)
+    acap: int         # entry arena slots per read
+    gape_mode: bool   # BWA_MODE_GAPE
+    nonstop: bool     # BWA_MODE_NONSTOP
+    loggap: bool      # BWA_MODE_LOGGAP
+
+
+def make_config(L: int, max_diff_hi: int, opt: GapOpt,
+                seq_len: int = 0) -> EngineConfig:
+    """Search parameters for a read batch (engine_jax.make_config)."""
+    nb = aln_score(max_diff_hi + 1, opt.max_gapo + 1, opt.max_gape + 1,
+                   opt) + 1
+    return EngineConfig(
+        L=L, SL=min(opt.seed_len, L), NB=nb,
+        s_mm=opt.s_mm, s_gapo=opt.s_gapo, s_gape=opt.s_gape,
+        max_gapo=opt.max_gapo, max_gape=opt.max_gape,
+        max_del_occ=opt.max_del_occ,
+        indel_end_skip=opt.indel_end_skip, max_top2=opt.max_top2,
+        max_entries=min(opt.max_entries, INT32_MAX),
+        max_seed_diff=opt.max_seed_diff,
+        iter_cap=ITER_CAP,
+        # narrow budgets on big genomes fit the small arena; wide budgets
+        # and small genomes (wide SA intervals) fan out far more entries
+        acap=(ACAP if max_diff_hi <= 5 and opt.max_gapo <= 1
+              and not (opt.mode & BWA_MODE_NONSTOP)
+              and seq_len >= (1 << 22) else max(ACAP, 1024)),
+        gape_mode=bool(opt.mode & BWA_MODE_GAPE),
+        nonstop=bool(opt.mode & BWA_MODE_NONSTOP),
+        loggap=bool(opt.mode & BWA_MODE_LOGGAP),
+    )
+
+
+@dataclasses.dataclass
+class SearchState:
+    """Per-lane search state, in engine_jax's 30-field order
+    (engine_jax.py:252-257).  Shapes: [B] unless noted; P = L + SL + 2."""
+
+    rid: torch.Tensor         # read index in the chunk (int32 value)
+    lens: torch.Tensor
+    has_seed: torch.Tensor    # bool
+    lane_it: torch.Tensor
+    sk: torch.Tensor          # int32[B, acap] arena planes (u32 bits)
+    sl: torch.Tensor
+    sm1: torch.Tensor
+    sm2: torch.Tensor
+    key: torch.Tensor         # int32[B, acap]
+    seqc: torch.Tensor
+    stack_n: torch.Tensor
+    w: torch.Tensor           # [B, 2, P] u32 widths (main ++ seed)
+    bid: torch.Tensor         # [B, 2, P]
+    meta: torch.Tensor        # [B, 2, P] u32, _pack_meta(w, bid)
+    hk: torch.Tensor          # [B, HCAP] u32
+    hl: torch.Tensor
+    hm: torch.Tensor
+    n_hits: torch.Tensor
+    best_score: torch.Tensor
+    best_cnt: torch.Tensor
+    max_diff: torch.Tensor
+    done: torch.Tensor        # bool
+    fb: torch.Tensor          # bool: route to the host search
+    it: torch.Tensor          # [] step counter
+    pslot: torch.Tensor       # next pop (computed by stack_update)
+    pkey: torch.Tensor
+    pk: torch.Tensor
+    pl: torch.Tensor
+    pm1: torch.Tensor
+    pm2: torch.Tensor
+
+
+FIELDS = tuple(f.name for f in dataclasses.fields(SearchState))
+
+
+def _pack_m2(nmm, gapo, gape):
+    return (nmm | (gapo << 8) | (gape << 16)) & MASK
+
+
+def _pack_m1(state, a, i, ldp):
+    return (state | (a << 2) | (i << 3) | (ldp << 16)) & MASK
+
+
+@functools.lru_cache(maxsize=None)
+def _child_states(dev) -> torch.Tensor:
+    """Entry state of child slots 0..9 (I, 4 x D, 4 x M, E): int64[1, 10],
+    made once per device (no host-to-device copy per step)."""
+    return torch.tensor([STATE_I] + [STATE_D] * 4 + [STATE_M] * 4
+                        + [STATE_E], dtype=I64, device=dev)[None, :]
+
+
+def _compute_widths(fm: DeviceFmPair, seqs: torch.Tensor, lens: torch.Tensor,
+                    Lw: int):
+    """bwt_cal_width (bwtaln.c:54-78), batched over [N, 2] lanes.
+
+    seqs: uint8[N, 2, Lw] (strand 0 against the fwd index, 1 against rev);
+    lens: int64[N].  Returns (w, bid): int64[N, 2, Lw + 1]."""
+    N = seqs.shape[0]
+    dev = seqs.device
+    strand = torch.arange(2, device=dev).repeat(N)
+    sq = seqs.to(I64).reshape(2 * N, Lw)
+    lens2 = lens.repeat_interleave(2)
+    k = torch.zeros(2 * N, dtype=I64, device=dev)
+    l = torch.full((2 * N,), fm.seq_len, dtype=I64, device=dev)
+    b = torch.zeros(2 * N, dtype=I64, device=dev)
+    ws, bids = [], []
+    for t in range(Lw):
+        c = sq[:, t]
+        valid = t < lens2
+        cn = torch.clamp(c, max=3)
+        o = occ1_pair(fm, strand, k, l, cn)
+        base = fm.L2[cn]
+        usable = c < 4
+        k2 = torch.where(usable, (base + o[:, 0] + 1) & MASK, k)
+        l2 = torch.where(usable, (base + o[:, 1]) & MASK, l)
+        reset = (k2 > l2) | ~usable
+        k = torch.where(valid, torch.where(reset, 0, k2), k)
+        l = torch.where(valid, torch.where(reset, fm.seq_len, l2), l)
+        b = torch.where(valid, b + reset.to(I64), b)
+        ws.append(torch.where(valid, (l - k + 1) & MASK, 0))
+        bids.append(torch.where(valid, b, 0))
+    zero = torch.zeros(2 * N, dtype=I64, device=dev)
+    w = torch.stack(ws + [zero], dim=1)
+    bid = torch.stack(bids + [zero], dim=1)
+    n = torch.clamp(lens2, max=Lw)[:, None]
+    w = w.scatter(1, n, 0)
+    bid = bid.scatter(1, n, (b + 1)[:, None])
+    return w.reshape(N, 2, Lw + 1), bid.reshape(N, 2, Lw + 1)
+
+
+def _pack_meta(w, bid):
+    """Pop-time width summary, one u32 per position: bid[i-1] (14b) |
+    bid[i] << 14 | (w[i-1] == w[i]) << 28, position 0 clamping i-1 to 0
+    (engine_jax._pack_meta)."""
+    wp = torch.cat([w[..., :1], w[..., :-1]], dim=-1)
+    bp = torch.cat([bid[..., :1], bid[..., :-1]], dim=-1)
+    return (bp | (bid << 14) | ((wp == w).to(I64) << 28)) & MASK
+
+
+def big_planes(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, has_seed,
+               seed_seqs):
+    """w / bid / meta planes of every read of a chunk: [N, 2, P]."""
+    w, bid = _compute_widths(fm, seqs, lens, cfg.L)
+    slens = torch.where(has_seed, cfg.SL, 0)
+    sw, sbid = _compute_widths(fm, seed_seqs, slens, cfg.SL)
+    w = torch.cat([w, sw], dim=2)
+    bid = torch.cat([bid, sbid], dim=2)
+    return w, bid, _pack_meta(w, bid)
+
+
+def _search_step(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
+                 st: SearchState) -> SearchState:
+    """One pop-expand step for every active lane (engine_jax._search_step
+    without the dimer path).  seqs: uint8[N, 2, L] of the reads the lanes'
+    `rid`s index.  The hit planes hk/hl/hm are updated in place."""
+    B = st.lens.shape[0]
+    dev = st.lens.device
+    rows = torch.arange(B, device=dev)
+    crid = torch.clamp(st.rid, 0, seqs.shape[0] - 1)
+    seq_len = fm.seq_len
+
+    act = ~st.done & ~st.fb
+    empty = st.stack_n == 0
+    done = st.done | (act & empty)
+    act = act & ~empty
+    over = st.stack_n > cfg.max_entries
+    done = done | (act & over)
+    act = act & ~over
+    # heavy-tail cap: a read burning > ITER_CAP steps goes to the host
+    lane_it = st.lane_it + act.to(I64)
+    fb = st.fb | (act & (lane_it > cfg.iter_cap))
+    act = act & (lane_it <= cfg.iter_cap)
+
+    # ---- pop: the previous step's stack_update left it in pslot..pm2
+    e_k, e_l, m1, m2 = st.pk, st.pl, st.pm1, st.pm2
+    e_score = st.pkey >> 20
+    stack_n = st.stack_n - act.to(I64)
+    e_state = m1 & 3
+    e_a = (m1 >> 2) & 1
+    e_i = (m1 >> 3) & 0x1FFF
+    e_ldp = (m1 >> 16) & 0x1FFF
+    e_nmm = m2 & 0xFF
+    e_gapo = (m2 >> 8) & 0xFF
+    e_gape = (m2 >> 16) & 0xFF
+    best_score, best_cnt, max_diff = st.best_score, st.best_cnt, st.max_diff
+
+    if not cfg.nonstop:
+        brk = e_score > best_score + cfg.s_mm
+        done = done | (act & brk)
+        act = act & ~brk
+
+    sidx = 1 - e_a                       # FM strand searched (fms[1-a])
+    is_e = act & (e_state == STATE_E)
+    is_norm = act & (e_state != STATE_E)
+    i2 = torch.clamp(e_i - 1, min=0)
+    i2g = torch.clamp(i2, max=cfg.L - 1)  # gather index (finished lanes)
+
+    # ---- occ4 at (k-1, l): the expansion AND the E-state extension
+    cnt = occ4_pair(fm, sidx, e_k, e_l)              # [B, 2, 4]
+    l2b = fm.L2[:4][None, :]
+    kj = (l2b + cnt[:, 0] + 1) & MASK                # [B, 4]
+    lj = (l2b + cnt[:, 1]) & MASK
+    # width/bid facts at (i2-1, i2) and the seed equivalents: one
+    # [B, 2]-position gather of the packed meta plane
+    ii = i2 - (st.lens - cfg.SL)
+    ii_c = torch.clamp(ii, 0, cfg.SL)
+    P = st.meta.shape[2]
+    pos2 = torch.stack([torch.clamp(i2, max=P - 1), ii_c + cfg.L + 1], -1)
+    mg = st.meta.reshape(-1)[((rows * 2 + e_a) * P)[:, None] + pos2]
+    mm_, ms_ = mg[:, 0], mg[:, 1]
+    bm1, b0_, weq = mm_ & 0x3FFF, (mm_ >> 14) & 0x3FFF, (mm_ >> 28) & 1
+    sbm1, sb0, sweq = ms_ & 0x3FFF, (ms_ >> 14) & 0x3FFF, (ms_ >> 28) & 1
+    base = seqs[crid, e_a, i2g].to(I64)              # read base
+
+    # ---- normal entry: budget + D(i) width pruning
+    m = max_diff - (e_nmm + e_gapo)
+    if cfg.gape_mode:
+        m = m - e_gape
+    alive = is_norm & (m >= 0) & ~((e_i > 0) & (m < b0_))
+    hit_direct = alive & (e_i == 0)
+    cond_e = alive & (e_i > 0) & (m == 0)
+    if not cfg.gape_mode:
+        cond_e = cond_e & ((e_state == STATE_M) | (e_gape == cfg.max_gape))
+    expand = alive & ~hit_direct & ~cond_e
+
+    # ---- E entry: one base of bwt_match_exact_alt (bwt.c:235-250)
+    e_cn = torch.clamp(base, max=3)[:, None]
+    e_k2 = kj.gather(1, e_cn)[:, 0]
+    e_l2 = lj.gather(1, e_cn)[:, 0]
+    e_go = is_e & (e_i > 0) & (base < 4) & (e_k2 <= e_l2)
+    hit_e = is_e & (e_i == 0)
+
+    # ---- hit bookkeeping (bwtgap.c:159-196)
+    hit = hit_direct | hit_e
+    first = hit & (st.n_hits == 0)
+    best_score = torch.where(first, e_score, best_score)
+    bdiff = e_nmm + e_gapo + (e_gape if cfg.gape_mode else 0)
+    if not cfg.nonstop:
+        max_diff = torch.where(first, torch.minimum(bdiff + 1, max_diff),
+                               max_diff)
+    same = e_score == best_score
+    occv = (e_l - e_k + 1) & MASK
+    brk2 = hit & ~same & (best_cnt > cfg.max_top2)
+    best_cnt = torch.where(hit & same, wrap_i32(best_cnt + wrap_i32(occv)),
+                           best_cnt)
+    done = done | brk2
+    add = hit & ~brk2
+    hseen = torch.arange(HCAP, device=dev)[None, :] < st.n_hits[:, None]
+    dup = ((st.hk == e_k[:, None]) & (st.hl == e_l[:, None])
+           & hseen).any(dim=1)
+    do_add = add & ~((e_gapo > 0) & dup)
+    hovf = do_add & (st.n_hits >= HCAP)
+    fb = fb | hovf
+    do_add = do_add & ~hovf
+    slot = torch.clamp(st.n_hits, max=HCAP - 1)
+    nmeta = _pack_m2(e_nmm, e_gapo, e_gape) | (e_a << 24)
+    for plane, v in ((st.hk, e_k), (st.hl, e_l), (st.hm, nmeta)):
+        plane[rows, slot] = torch.where(do_add, v, plane[rows, slot])
+    n_hits = st.n_hits + do_add.to(I64)
+
+    # ---- gap_shadow (bwtgap.c:81-91) over the main positions < ldp
+    x3 = occv[:, None, None]
+    strand_sel = torch.arange(2, device=dev)[None, :, None] == e_a[:, None,
+                                                                   None]
+    inr = torch.arange(P, device=dev)[None, None, :] < e_ldp[:, None, None]
+    upd = do_add[:, None, None] & strand_sel & inr
+    meq = upd & (st.w == x3)
+    j = torch.cumsum(meq.to(I64), dim=2)
+    w = torch.where(upd & (st.w > x3), st.w - x3,
+                    torch.where(meq, (seq_len - j) & MASK, st.w))
+    bid = torch.where(meq, 1, st.bid)
+    meta = _pack_meta(w, bid)
+
+    # ---- expansion (bwtgap.c:198-258)
+    ad1 = bm1 > m - 1
+    am1 = ~ad1 & (bm1 == m - 1) & (b0_ == m - 1) & (weq == 1)
+    m_seed = cfg.max_seed_diff - (e_nmm + e_gapo)
+    if cfg.gape_mode:
+        m_seed = m_seed - e_gape
+    sgate = st.has_seed & (ii > 0)
+    sad = sbm1 > m_seed - 1
+    ad2 = sgate & sad
+    am2 = sgate & ~sad & (sbm1 == m_seed - 1) & (sb0 == m_seed - 1) \
+        & (sweq == 1)
+    at_end = i2 == 0
+    allow_diff = at_end | (~ad1 & ~ad2)
+    allow_m = at_end | (~am1 & ~am2)
+    if cfg.loggap:
+        tmp = int_log2(e_gape + e_gapo, cfg.max_gapo + cfg.max_gape) // 2 + 1
+    else:
+        tmp = e_gapo + e_gape
+    ok_indel = (expand & allow_diff & (i2 >= cfg.indel_end_skip + tmp)
+                & (st.lens - i2 >= cfg.indel_end_skip + tmp))
+
+    col = lambda v: v[:, None]
+    full4 = lambda v: col(v).expand(B, 4)
+    # slot 0: I open (from M) or I extend (from I)
+    io = ok_indel & (e_state == STATE_M) & (e_gapo < cfg.max_gapo)
+    ie = ok_indel & (e_state == STATE_I) & (e_gape < cfg.max_gape)
+    # slots 1-4: D open (from M) or D extend (from D), base j = 0..3
+    d_open = io
+    d_ext = (ok_indel & (e_state == STATE_D) & (e_gape < cfg.max_gape)
+             & ((e_gape + e_gapo < max_diff) | (occv < cfg.max_del_occ)))
+    d_any = d_open | d_ext
+    # slots 5-8: mismatch/match, j = 1..4, c = (base + j) & 3
+    allow_full = allow_diff & allow_m
+    cm = (col(base) + torch.arange(1, 5, device=dev)) & 3     # [B, 4]
+    kc = kj.gather(1, cm)
+    lc = lj.gather(1, cm)
+    is_mm = torch.cat([torch.ones(B, 3, dtype=I64, device=dev),
+                       col(base > 3).to(I64)], dim=1)
+    m_ok = torch.cat([full4(allow_full)[:, :3],
+                      col(allow_full | (base < 4))], dim=1)
+    # slot 9: exact-extension chain (spawn or continuation), burning
+    # E_UNROLL - 1 more bases with occ1 (the chain is atomic under LIFO)
+    ev = cond_e | e_go
+    ek9 = torch.where(cond_e, e_k, e_k2)
+    el9 = torch.where(cond_e, e_l, e_l2)
+    ei9 = torch.where(cond_e, e_i, e_i - 1)
+    for _ in range(E_UNROLL - 1):
+        cont = ev & (ei9 > 0)
+        bu = seqs[crid, e_a, torch.clamp(ei9 - 1, 0, cfg.L - 1)].to(I64)
+        cu = torch.clamp(bu, max=3)
+        ou = occ1_pair(fm, sidx, ek9, el9, cu)        # [B, 2]
+        l2u = fm.L2[cu]
+        k2u = (l2u + ou[:, 0] + 1) & MASK
+        l2v = (l2u + ou[:, 1]) & MASK
+        okx = cont & (bu < 4) & (k2u <= l2v)
+        ev = ev & ~(cont & ~okx)
+        ek9 = torch.where(okx, k2u, ek9)
+        el9 = torch.where(okx, l2v, el9)
+        ei9 = torch.where(okx, ei9 - 1, ei9)
+
+    # ---- children [B, 10] in reference push order
+    c_valid = torch.cat([col(io | ie), full4(d_any) & (kj <= lj),
+                         expand[:, None] & (kc <= lc) & m_ok, col(ev)], 1)
+    ck_ = torch.cat([col(e_k), kj, kc, col(ek9)], 1)
+    cl_ = torch.cat([col(e_l), lj, lc, col(el9)], 1)
+    c_i = torch.cat([col(i2), full4(i2 + 1), full4(i2), col(ei9)], 1)
+    c_state = _child_states(dev)
+    c_nmm = torch.cat([col(e_nmm), full4(e_nmm), col(e_nmm) + is_mm,
+                       col(e_nmm)], 1)
+    c_gapo = torch.cat([col(e_gapo + io.to(I64)),
+                        full4(e_gapo + d_open.to(I64)), full4(e_gapo),
+                        col(e_gapo)], 1)
+    c_gape = torch.cat([col(e_gape + ie.to(I64)),
+                        full4(e_gape + d_ext.to(I64)), full4(e_gape),
+                        col(e_gape)], 1)
+    c_ldp = torch.cat([col(i2), full4(i2 + 1),
+                       torch.where(is_mm > 0, col(i2), col(e_ldp)),
+                       col(e_ldp)], 1)
+
+    # ---- push (LIFO via seqno) through the stack kernel
+    cm1 = _pack_m1(c_state, col(e_a), c_i, c_ldp)
+    cm2 = _pack_m2(c_nmm, c_gapo, c_gape)
+    sc = c_nmm * cfg.s_mm + c_gapo * cfg.s_gapo + c_gape * cfg.s_gape
+    cv = c_valid & col(act)
+    cvi = cv.to(I64)
+    ofs = torch.cumsum(cvi, dim=1) - cvi              # exclusive rank
+    seq_ovf = cv & (col(st.seqc) + ofs >= MAX_SEQ)
+    fb = fb | seq_ovf.any(dim=1)
+    cv = cv & ~seq_ovf
+    kv = wrap_i32((sc << 20) | (MAX_SEQ - (col(st.seqc) + ofs)))
+    (key, sk, sl, sm1, sm2, ovf, npush,
+     pslot, pkey, pk, pl, pm1, pm2) = stack_update(
+        st.pslot, act, cv, ofs, kv, ck_, cl_, cm1, cm2,
+        st.key, st.sk, st.sl, st.sm1, st.sm2)
+    fb = fb | ovf
+
+    return SearchState(
+        rid=st.rid, lens=st.lens, has_seed=st.has_seed, lane_it=lane_it,
+        sk=sk, sl=sl, sm1=sm1, sm2=sm2, key=key, seqc=st.seqc + npush,
+        stack_n=stack_n + npush, w=w, bid=bid, meta=meta,
+        hk=st.hk, hl=st.hl, hm=st.hm, n_hits=n_hits,
+        best_score=best_score, best_cnt=best_cnt, max_diff=max_diff,
+        done=done, fb=fb, it=st.it + 1,
+        pslot=pslot, pkey=pkey, pk=pk, pl=pl, pm1=pm1, pm2=pm2)
+
+
+def _load_lanes(cfg: EngineConfig, st: SearchState, load, crid, lens,
+                has_seed, max_diff0, big, seq_len: int) -> None:
+    """Reset the lanes in `load` to the start of read `crid` (in place):
+    the two strand roots in slots 0/1, the a=1 root (slot 1) popped
+    first (engine_jax.py:800-844)."""
+    col = load[:, None]
+    st.lens = torch.where(load, lens[crid], st.lens)
+    st.has_seed = torch.where(load, has_seed[crid], st.has_seed)
+    md_new = max_diff0[crid]
+    st.max_diff = torch.where(load, md_new, st.max_diff)
+    l3 = load[:, None, None]
+    st.w, st.bid, st.meta = (torch.where(l3, b[crid], p) for p, b in
+                             zip((st.w, st.bid, st.meta), big))
+    st.key = torch.where(col, INT32_MAX, st.key)
+    zero = torch.zeros_like(st.lens)
+    root = [_pack_m1(zero + STATE_M, zero + a, st.lens, zero)
+            for a in (0, 1)]
+    for s in (0, 1):
+        for plane, v in ((st.key, MAX_SEQ - s), (st.sl, wrap_i32(seq_len)),
+                         (st.sk, 0), (st.sm2, 0),
+                         (st.sm1, wrap_i32(root[s]))):
+            plane[:, s] = torch.where(load, v, plane[:, s]).to(plane.dtype)
+    st.seqc = torch.where(load, 2, st.seqc)
+    st.stack_n = torch.where(load, 2, st.stack_n)
+    st.pslot = torch.where(load, 1, st.pslot)
+    st.pkey = torch.where(load, MAX_SEQ - 1, st.pkey)
+    st.pk = torch.where(load, 0, st.pk)
+    st.pl = torch.where(load, seq_len, st.pl)
+    st.pm1 = torch.where(load, root[1], st.pm1)
+    st.pm2 = torch.where(load, 0, st.pm2)
+    st.lane_it = torch.where(load, 0, st.lane_it)
+    st.n_hits = torch.where(load, 0, st.n_hits)
+    st.best_score = torch.where(
+        load, (md_new + 1) * cfg.s_mm + (cfg.max_gapo + 1) * cfg.s_gapo
+        + (cfg.max_gape + 1) * cfg.s_gape, st.best_score)
+    st.best_cnt = torch.where(load, 0, st.best_cnt)
+
+
+def _empty_lanes(cfg: EngineConfig, B: int, dev) -> SearchState:
+    """Lane state "before the first read": rid = lane - B and every lane
+    done, so the first switch phase loads read `lane` into lane `lane`."""
+    P = cfg.L + cfg.SL + 2
+    zb = torch.zeros(B, dtype=I64, device=dev)
+    zp = lambda *s, dt=torch.int32: torch.zeros(*s, dtype=dt, device=dev)
+    fb = torch.zeros(B, dtype=torch.bool, device=dev)
+    return SearchState(
+        rid=torch.arange(B, device=dev) - B, lens=zb + 1, has_seed=fb,
+        lane_it=zb, sk=zp(B, cfg.acap), sl=zp(B, cfg.acap),
+        sm1=zp(B, cfg.acap), sm2=zp(B, cfg.acap),
+        key=torch.full((B, cfg.acap), INT32_MAX, dtype=torch.int32,
+                       device=dev),
+        seqc=zb + 2, stack_n=zb, w=zp(B, 2, P, dt=I64),
+        bid=zp(B, 2, P, dt=I64), meta=zp(B, 2, P, dt=I64),
+        hk=zp(B, HCAP, dt=I64), hl=zp(B, HCAP, dt=I64),
+        hm=zp(B, HCAP, dt=I64), n_hits=zb, best_score=zb, best_cnt=zb,
+        max_diff=zb, done=~fb, fb=fb, it=torch.zeros((), dtype=I64,
+                                                     device=dev),
+        pslot=zb, pkey=zb, pk=zb, pl=zb, pm1=zb, pm2=zb)
+
+
+def run_search_persistent(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
+                          max_diff0, has_seed, seed_seqs, bad,
+                          n_lanes: int):
+    """Persistent-lane scheduler (engine_jax._run_search_persistent):
+    n_lanes lanes stream through the N reads of a chunk, lane b taking
+    reads b, b + B, ...; every SWITCH_K steps a switch phase flushes the
+    finished lanes' hits and loads their next read.
+
+    seqs uint8[N, 2, L], seed_seqs uint8[N, 2, SL], lens / max_diff0
+    int64[N], has_seed / bad bool[N], all on fm's device.  Returns
+    (hits int64[N, HCAP, 3] as (meta, k, l), n_hits int64[N],
+    fb bool[N], steps)."""
+    N = lens.shape[0]
+    B = n_lanes
+    dev = fm.device
+    big = big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs)
+    # outputs are indexed by rid mod Npad: a lane's rid stays congruent
+    # to the lane mod B, so every lane owns distinct rows, and a lane with
+    # nothing to flush rewrites its row unchanged (no dropped scatter)
+    npad = -(-N // B) * B
+    out_h = [torch.zeros(npad, HCAP, dtype=I64, device=dev)
+             for _ in range(3)]
+    out_nh = torch.zeros(npad, dtype=I64, device=dev)
+    out_fb = torch.zeros(npad, dtype=torch.bool, device=dev)
+    remaining = torch.tensor(N, dtype=I64, device=dev)
+    st = _empty_lanes(cfg, B, dev)
+
+    while True:
+        # ---- switch phase
+        fin = st.done | st.fb
+        valid = (st.rid >= 0) & (st.rid < N) & fin
+        orow = torch.remainder(st.rid, npad)
+        for out, src in zip(out_h, (st.hm, st.hk, st.hl)):
+            out[orow] = torch.where(valid[:, None], src, out[orow])
+        out_nh[orow] = torch.where(valid, st.n_hits, out_nh[orow])
+        out_fb[orow] = torch.where(valid, st.fb, out_fb[orow])
+        remaining = remaining - valid.sum()
+        st.rid = torch.where(fin, st.rid + B, st.rid)
+        load = fin & (st.rid < N)
+        park = fin & (st.rid >= N)
+        crid = torch.clamp(st.rid, 0, N - 1)
+        _load_lanes(cfg, st, load, crid, lens, has_seed, max_diff0, big,
+                    fm.seq_len)
+        st.done = torch.where(fin, park | (load & bad[crid]), st.done)
+        st.fb = torch.where(fin, False, st.fb)
+        # ---- SWITCH_K search steps
+        for _ in range(SWITCH_K):
+            st = _search_step(cfg, fm, seqs, st)
+        left, steps = torch.stack([remaining, st.it]).tolist()  # one sync
+        if left <= 0 or steps >= MAX_ITERS * 8:
+            break
+    out_fb = out_fb | (remaining > 0)   # iteration bound hit: all fall back
+    hits = torch.stack(out_h, dim=-1)[:N]
+    return hits, out_nh[:N], out_fb[:N], int(steps)
+
+
+class TorchAlnEngine:
+    """Batched device search with native-host overflow fallback and the
+    hybrid host share (engine_jax.JaxAlnEngine on one torch device)."""
+
+    def __init__(self, fms: tuple[FmIndex, FmIndex], device):
+        self.fms = fms
+        self.device = torch.device(device)
+        self.dfm = build_device_pair(fms[0], fms[1], self.device)
+        self.stats = {"device_reads": 0, "fallback_reads": 0,
+                      "host_reads": 0, "iterations": 0}
+        self.host_frac = float(os.environ.get("IBWA_HOST_FRAC",
+                                              HOST_FRAC_INIT))
+        # an explicit env share is FIXED (no adaptation)
+        self._frac_fixed = "IBWA_HOST_FRAC" in os.environ
+        # one worker: native jobs (host share, then overflow fallback) run
+        # one at a time on one host thread, beside the device search
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+
+    def align_batch(self, seqs: list[np.ndarray], rseqs: list[np.ndarray],
+                    opt: GapOpt) -> list[list[Hit]]:
+        """bwa_cal_sa_reg_gap semantics over a read batch (bwtaln.c:80-140);
+        per-read hit lists identical to engine_ref.align_batch."""
+        if not seqs:
+            return []
+        n_reads = len(seqs)
+        max_len = max(len(s) for s in seqs)
+        batch_opt = dataclasses.replace(opt)
+        if opt.fnr > 0.0:
+            batch_opt.max_diff = cal_maxdiff(max_len, thres=opt.fnr)
+        if batch_opt.max_diff < batch_opt.max_gapo:
+            batch_opt.max_gapo = batch_opt.max_diff
+        lens = np.array([len(s) for s in seqs], dtype=np.int64)
+        if opt.fnr > 0.0:
+            md_by_len = {int(n): cal_maxdiff(int(n), thres=opt.fnr)
+                         for n in np.unique(lens)}
+            max_diff = np.array([md_by_len[int(n)] for n in lens],
+                                dtype=np.int64)
+        else:
+            max_diff = np.full(n_reads, batch_opt.max_diff, dtype=np.int64)
+        L = int(max(8, (max_len + 7) // 8 * 8))
+        cfg = make_config(L, int(max_diff.max()), batch_opt,
+                          seq_len=self.dfm.seq_len)
+        SL = cfg.SL
+        out: list[list[Hit] | None] = [None] * n_reads
+
+        # ---- hybrid: a share of the batch goes straight to the native
+        # search in the background pool while the device runs the rest
+        if self.host_frac >= 0.999:
+            n_host = n_reads
+        else:
+            n_host = int(n_reads * self.host_frac) if n_reads > 2048 else 0
+        host_lo = n_reads - n_host
+        host_busy = [0.0]
+        t_start = time.perf_counter()
+
+        def timed_native(s, r):
+            t0 = time.perf_counter()
+            res = native_align_batch(self.fms, s, r, opt)
+            host_busy[0] += time.perf_counter() - t0
+            return res
+
+        host_jobs = []
+        for lo in range(host_lo, n_reads, HOST_CHUNK):
+            hi = min(lo + HOST_CHUNK, n_reads)
+            host_jobs.append((lo, self._pool.submit(
+                timed_native, seqs[lo:hi], rseqs[lo:hi])))
+
+        # ---- vectorized input packing of the device share
+        all_sq, all_ssq, all_hs, all_bad = _pack_reads(
+            seqs[:host_lo], rseqs[:host_lo], lens[:host_lo],
+            max_diff[:host_lo], L, SL, opt.seed_len)
+
+        fb_jobs = []
+        n_fb = 0
+        dev = self.device
+        for lo in range(0, host_lo, PERSIST_N):
+            hi = min(lo + PERSIST_N, host_lo)
+            # eager torch has no compiled shapes: the tail chunk runs at
+            # its own size (no padding reads), on no more lanes than reads
+            put = lambda a: torch.from_numpy(a[lo:hi]).to(dev)
+            harr, n_hits, fb, steps = run_search_persistent(
+                cfg, self.dfm, put(all_sq), put(lens), put(max_diff),
+                put(all_hs), put(all_ssq), put(all_bad),
+                n_lanes=min(DEV_BATCH, hi - lo))
+            harr = harr.cpu().numpy()
+            nh = n_hits.cpu().numpy()
+            fb = fb.cpu().numpy()
+            self.stats["iterations"] += steps
+            chunk_fb = np.nonzero(fb)[0]
+            if len(chunk_fb):
+                idxs = [lo + int(b) for b in chunk_fb]
+                n_fb += len(idxs)
+                fb_jobs.append((idxs, self._pool.submit(
+                    native_align_batch, self.fms,
+                    [seqs[i] for i in idxs], [rseqs[i] for i in idxs], opt)))
+            _decode(harr, nh, fb, opt, out, lo)
+
+        t_dev = time.perf_counter() - t_start
+        self.stats["device_reads"] += host_lo - n_fb
+        self.stats["fallback_reads"] += n_fb
+        self.stats["host_reads"] += n_host
+        for idxs, fut in fb_jobs:
+            for i, h in zip(idxs, fut.result()):
+                out[i] = h
+        for lo, fut in host_jobs:
+            for i, h in enumerate(fut.result()):
+                out[lo + i] = h
+        if (not self._frac_fixed) and n_host and host_lo \
+                and host_busy[0] > 0:
+            # rate-based balance: size the next host share so the pool's
+            # work (pre-split reads + overflow fallback) fits the device
+            # wall
+            per_read = host_busy[0] / max(n_host + n_fb, 1)
+            want = t_dev / per_read - n_fb
+            f_star = min(max(want / n_reads, 0.02), 0.85)
+            self.host_frac = 0.5 * self.host_frac + 0.5 * f_star
+        self.stats["host_frac"] = round(self.host_frac, 3)
+        return out  # type: ignore[return-value]
+
+
+def _pack_reads(seqs, rseqs, lens, max_diff, L: int, SL: int,
+                seed_len: int):
+    """Pack reads into the device layout: (sq uint8[n, 2, L], ssq
+    uint8[n, 2, SL] seed suffixes, has_seed bool[n], bad bool[n] — more
+    N bases than the read's diff budget)."""
+    n = len(seqs)
+    cat = np.concatenate(seqs) if n else np.zeros(0, np.uint8)
+    catr = np.concatenate(rseqs) if n else np.zeros(0, np.uint8)
+    starts = np.zeros(n, dtype=np.int64)
+    if n:
+        starts[1:] = np.cumsum(lens[:-1])
+    sq = np.full((n, 2, L), 4, dtype=np.uint8)
+    lmask = np.arange(L)[None, :] < lens[:, None]
+    sq[:, 0][lmask] = cat
+    sq[:, 1][lmask] = catr
+    hs = lens > seed_len
+    sidx = (starts + lens - SL)[:, None] + np.arange(SL)[None, :]
+    sidx = np.clip(sidx, 0, max(len(cat) - 1, 0))
+    ssq = np.full((n, 2, SL), 4, dtype=np.uint8)
+    if len(cat):
+        ssq[:, 0] = cat[sidx]
+        ssq[:, 1] = catr[sidx]
+    ssq[~hs] = 4
+    nN = (np.add.reduceat((cat > 3).astype(np.int64), starts)
+          if n else np.zeros(0, np.int64))
+    return sq, ssq, hs, nN > max_diff
+
+
+def _decode(harr, nh, fb, opt: GapOpt, out, lo: int) -> None:
+    """Device hit planes -> per-read Hit lists (vectorized unpack)."""
+    nh_arr = np.where(fb, 0, nh.astype(np.int64))
+    valid = np.arange(harr.shape[1])[None, :] < nh_arr[:, None]
+    vh = harr[valid]                       # [T, 3] read-major
+    meta = vh[:, 0]
+    nmm, gapo, gape = meta & 0xFF, (meta >> 8) & 0xFF, (meta >> 16) & 0xFF
+    flat = np.stack(
+        [nmm, gapo, gape, (meta >> 24) & 1, vh[:, 1], vh[:, 2],
+         nmm * opt.s_mm + gapo * opt.s_gapo + gape * opt.s_gape],
+        axis=-1).tolist()
+    fbl = fb.tolist()
+    start = 0
+    for b, n in enumerate(nh_arr.tolist()):
+        end = start + n
+        if not fbl[b]:
+            out[lo + b] = [Hit(*c) for c in flat[start:end]]
+        start = end
+
+
+def native_align_batch(fms, seqs, rseqs, opt):
+    """bwa_cal_sa_reg_gap over a batch via the C++ search (one host
+    thread) — a jax-free copy of engine_jax.native_align_batch, whose
+    module imports jax.  The device engine's fallback and the `native`
+    engine."""
+    from ibwa_tpu import native
+
+    if not seqs:
+        return []
+    max_len = max(len(s) for s in seqs)
+    batch_opt = dataclasses.replace(opt)
+    if opt.fnr > 0.0:
+        batch_opt.max_diff = cal_maxdiff(max_len, thres=opt.fnr)
+    if batch_opt.max_diff < batch_opt.max_gapo:
+        batch_opt.max_gapo = batch_opt.max_diff
+    if opt.fnr > 0.0:
+        md = np.array([cal_maxdiff(len(s), thres=opt.fnr) for s in seqs],
+                      dtype=np.int32)
+    else:
+        md = np.full(len(seqs), batch_opt.max_diff, dtype=np.int32)
+    sl = np.array([opt.seed_len if opt.seed_len < len(s) else INT32_MAX
+                   for s in seqs], dtype=np.int32)
+    harr, hn = native.match_gap_batch(fms[0], fms[1], seqs, rseqs, md, sl,
+                                      batch_opt)
+    hn_arr = np.asarray(hn, dtype=np.int64)
+    okl = (hn_arr >= 0).tolist()
+    nh = np.maximum(hn_arr, 0)
+    valid = np.arange(harr.shape[1])[None, :] < nh[:, None]
+    vh = harr[valid]  # [T, 4] read-major, uint32
+    meta = vh[:, 0].astype(np.int64)
+    flat = np.stack(
+        [meta & 0xFF, (meta >> 8) & 0xFF, (meta >> 16) & 0xFF,
+         (meta >> 24) & 1, vh[:, 1].astype(np.int64),
+         vh[:, 2].astype(np.int64),
+         vh[:, 3].astype(np.int32).astype(np.int64)], axis=-1).tolist()
+    out = []
+    start = 0
+    for i, n in enumerate(nh.tolist()):
+        end = start + n
+        if okl[i]:
+            out.append([Hit(*c) for c in flat[start:end]])
+        else:  # per-read hit capacity overflow: exact re-run
+            out.append(engine_ref.align_batch(
+                fms, [seqs[i]], [rseqs[i]], opt)[0])
+        start = end
+    return out

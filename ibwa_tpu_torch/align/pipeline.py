@@ -1,0 +1,93 @@
+"""The `aln` stage: reads + FM-indexes -> .sai stream.
+
+Port of `ibwa_tpu/align/pipeline.py` (bwa_aln_core, bwtaln.c:173-241):
+batches of 0x40000 reads, the gap_opt_t header, per-read hit records.
+Index loading, read parsing (FASTQ and BAM) and the .sai writer are
+`ibwa_tpu`'s own jax-free modules.
+
+Engines:
+  * "torch"  — the device search (align/engine.py) on `device`, with the
+               native host search for overflow reads and the hybrid share
+  * "native" — the native C++ search for everything
+  * "ref"    — the host emulator for everything (slow; testing only)
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from typing import BinaryIO
+
+from ibwa_tpu.align import engine_ref
+from ibwa_tpu.align.opts import GapOpt
+from ibwa_tpu.fm.fmindex import FmIndex
+from ibwa_tpu.index.builder import load_index
+from ibwa_tpu.io import sai
+from ibwa_tpu.io.reads import load_reads
+
+from . import engine as torch_engine
+
+BATCH_SIZE = 0x40000
+
+
+def _load(fq_path: str, opt: GapOpt):
+    if opt.mode & 0x20:  # BWA_MODE_BAM (bwtaln.c:162-168)
+        from ibwa_tpu.io.bam import load_reads_bam
+        which = 0
+        if opt.mode & 0x40:
+            which |= 4
+        if opt.mode & 0x80:
+            which |= 1
+        if opt.mode & 0x100:
+            which |= 2
+        if which == 0:
+            which = 7
+        return load_reads_bam(fq_path, which, trim_qual=opt.trim_qual,
+                              is_comp=bool(opt.mode & 0x02))
+    return load_reads(fq_path, trim_qual=opt.trim_qual,
+                      is_comp=bool(opt.mode & 0x02),
+                      is_64=bool(opt.mode & 0x200), l_bc=opt.mode >> 24)
+
+
+def aln_to_stream(prefix: str, fq_path: str, opt: GapOpt, out: BinaryIO,
+                  engine: str = "torch", device: str = "cuda") -> int:
+    """Align every read of `fq_path` against the index at `prefix` and
+    write the .sai stream to `out`; returns the read count.  Ends with an
+    `[aln] stats {json}` line on stderr."""
+    if engine not in ("torch", "native", "ref"):
+        raise ValueError(f"unknown engine {engine!r}")
+    fms = (FmIndex(load_index(prefix, 0)), FmIndex(load_index(prefix, 1)))
+    reads = _load(fq_path, opt)
+    eng = (torch_engine.TorchAlnEngine(fms, device) if engine == "torch"
+           else None)
+    sai.write_header(out, opt)
+    total = 0
+    search_s = 0.0
+    try:
+        for start in range(0, len(reads), BATCH_SIZE):
+            batch = reads[start:start + BATCH_SIZE]
+            seqs = [r.seq for r in batch]
+            rseqs = [r.rseq for r in batch]
+            t0 = time.perf_counter()
+            if engine == "ref":
+                results = engine_ref.align_batch(fms, seqs, rseqs, opt)
+            elif engine == "native":
+                results = torch_engine.native_align_batch(fms, seqs, rseqs,
+                                                          opt)
+            else:
+                results = eng.align_batch(seqs, rseqs, opt)
+            search_s += time.perf_counter() - t0
+            for hits in results:
+                sai.write_read_hits(out, hits)
+            total += len(batch)
+            print(f"[aln] {total} sequences processed", file=sys.stderr)
+    finally:
+        if eng is not None:
+            eng.close()
+    # one machine-readable summary line: search wall time (index and
+    # read loading excluded) and the device engine's counters
+    summary = {"engine": engine, "reads": total, "search_s": search_s,
+               **(eng.stats if eng is not None else {})}
+    print(f"[aln] stats {json.dumps(summary)}", file=sys.stderr)
+    return total

@@ -1,0 +1,110 @@
+"""Command-line interface: `aln` on the torch engine, everything else
+through `ibwa_tpu.cli` (jax-free on those paths).
+
+Usage: python -m ibwa_tpu_torch <command> [options]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ibwa_tpu import cli as tpu_cli
+
+
+def cmd_aln(argv: list[str]) -> int:
+    """`aln` with the reference option surface (ibwa_tpu.cli.cmd_aln) plus
+    --device; --engine picks torch (default), native or ref."""
+    ap = argparse.ArgumentParser(prog="ibwa-tpu-torch aln")
+    ap.add_argument("prefix")
+    ap.add_argument("fastq")
+    ap.add_argument("-n", default=None,
+                    help="max #diff (int) or missing prob (float)")
+    ap.add_argument("-o", type=int, default=None, help="max gap opens")
+    ap.add_argument("-e", type=int, default=-1, help="max gap extensions")
+    ap.add_argument("-i", type=int, default=None, help="indel end skip")
+    ap.add_argument("-d", type=int, default=None, help="max del occ")
+    ap.add_argument("-l", type=int, default=None, help="seed length")
+    ap.add_argument("-k", type=int, default=None, help="max seed diff")
+    ap.add_argument("-m", type=int, default=None, help="max entries")
+    ap.add_argument("-M", type=int, default=None, help="mismatch penalty")
+    ap.add_argument("-O", type=int, default=None, help="gap open penalty")
+    ap.add_argument("-E", type=int, default=None, help="gap extend penalty")
+    ap.add_argument("-R", type=int, default=None, help="max equally-best")
+    ap.add_argument("-q", type=int, default=None, help="trim quality")
+    ap.add_argument("-N", action="store_true", help="non-iterative mode")
+    ap.add_argument("-t", type=int, default=1,
+                    help="host threads (sets OMP_NUM_THREADS, as "
+                         "ibwa_tpu aln does)")
+    ap.add_argument("-c", action="store_true", help="color-space reads")
+    ap.add_argument("-b", action="store_true", help="BAM input")
+    ap.add_argument("-B", type=int, default=0, help="barcode length")
+    ap.add_argument("-I", action="store_true",
+                    help="input is Illumina 1.3+ quality (64-based)")
+    ap.add_argument("-0", dest="b0", action="store_true",
+                    help="BAM: use single-end reads only")
+    ap.add_argument("-1", dest="b1", action="store_true",
+                    help="BAM: use read1 only")
+    ap.add_argument("-2", dest="b2", action="store_true",
+                    help="BAM: use read2 only")
+    ap.add_argument("-f", default=None, help="output file [stdout]")
+    ap.add_argument("--engine", default="torch",
+                    choices=["torch", "native", "ref"])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the search (cuda, cuda:N, cpu)")
+    args = ap.parse_args(argv)
+
+    from ibwa_tpu.align.opts import BWA_MODE_GAPE, BWA_MODE_NONSTOP, GapOpt
+    from .align.pipeline import aln_to_stream
+    opt = GapOpt()
+    if args.n is not None:
+        if "." in args.n:
+            opt.fnr, opt.max_diff = float(args.n), -1
+        else:
+            opt.max_diff, opt.fnr = int(args.n), -1.0
+    if args.o is not None:
+        opt.max_gapo = args.o
+    if args.e > 0:
+        opt.max_gape = args.e
+        opt.mode &= ~BWA_MODE_GAPE
+    for flag, attr in [("i", "indel_end_skip"), ("d", "max_del_occ"),
+                       ("l", "seed_len"), ("k", "max_seed_diff"),
+                       ("m", "max_entries"), ("M", "s_mm"), ("O", "s_gapo"),
+                       ("E", "s_gape"), ("R", "max_top2"), ("q", "trim_qual")]:
+        v = getattr(args, flag)
+        if v is not None:
+            setattr(opt, attr, v)
+    if args.N:
+        opt.mode |= BWA_MODE_NONSTOP
+        opt.max_top2 = 0x7FFFFFFF
+    opt.n_threads = args.t
+    if args.t > 0:
+        import os
+        os.environ.setdefault("OMP_NUM_THREADS", str(args.t))
+    if args.c:
+        opt.mode &= ~0x02  # clear BWA_MODE_COMPREAD (bwtaln.c:262)
+    for on, bit in ((args.b, 0x20), (args.b0, 0x40), (args.b1, 0x80),
+                    (args.b2, 0x100), (args.I, 0x200)):
+        if on:
+            opt.mode |= bit
+    if args.B:
+        opt.mode |= args.B << 24
+    out = open(args.f, "wb") if args.f else sys.stdout.buffer
+    try:
+        aln_to_stream(args.prefix, args.fastq, opt, out, engine=args.engine,
+                      device=args.device)
+    finally:
+        if args.f:
+            out.close()
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "aln":
+        return cmd_aln(argv[1:])
+    return tpu_cli.main(argv)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,201 @@
+// K2: paired occ4 / occ1 queries (bwt_occ4 / bwt_occ, bwt.c:90-214) over
+// the device FM block table.
+//
+// Replaces: ibwa_tpu/fm/device.py::occ4 and ::occ1 (with _gather_block and
+// _partial_mask), the XLA row gather + masked 2-bit popcount that every
+// width step and every search step of the aln engine runs.
+//
+// Layout: blocks is uint32[2 * n_blk, 4 + intv/16] (fwd strand rows, then
+// rev strand rows): 4 occ checkpoint words, then the 2-bit packed BWT text
+// of the intv bases after the checkpoint.  One query is one row.
+//
+// Bound on an H100: dependent row fetches.  A thread issues one 24/32/48 B
+// row load whose address depends on the query, then does ~10 integer ops
+// per word; the arithmetic is negligible and the time is the latency of
+// scattered loads.  At intv 64 a row is 32 B per 64 bases, 1 B/base for
+// both strands: a chr20-scale genome (32 Mbp, a ~32 MB table) sits in the
+// 50 MB L2; a human-scale table (~3 GB) does not, and every query is an
+// HBM round trip.
+//
+// Design: one thread per (query, bound).  The two bounds of one SA interval
+// (k-1 and l, the pair every caller asks for) sit in neighbouring threads,
+// so a warp covers 16 intervals with 32 independent loads in flight.  The
+// row is read with 16-byte vector loads (8-byte at intv 32, whose 24 B rows
+// are only 8-byte aligned) through the read-only path, the counts are
+// __popc over the masked match words, and the sentinel adjust, the clamp
+// and the NEG1 / seq_len edge cases are done in registers.  Many warps per
+// SM keep enough loads in flight to hide the latency.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr uint32_t kNeg1 = 0xFFFFFFFFu;
+
+template <int ROWW>
+__device__ __forceinline__ void load_row(const uint32_t* __restrict__ p,
+                                         uint32_t (&r)[ROWW]) {
+  if constexpr (ROWW % 4 == 0) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < ROWW / 4; ++i) {
+      uint4 v = __ldg(q + i);
+      r[4 * i] = v.x;
+      r[4 * i + 1] = v.y;
+      r[4 * i + 2] = v.z;
+      r[4 * i + 3] = v.w;
+    }
+  } else {
+    const uint2* q = reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int i = 0; i < ROWW / 2; ++i) {
+      uint2 v = __ldg(q + i);
+      r[2 * i] = v.x;
+      r[2 * i + 1] = v.y;
+    }
+  }
+}
+
+// Row of query k on `strand`, and k's offset inside the row's block.
+struct Where {
+  uint64_t row;
+  uint32_t off;
+};
+
+__device__ __forceinline__ Where locate(uint32_t k, uint32_t prim,
+                                        uint32_t seq_len, uint32_t n_blk,
+                                        int shift, uint32_t strand) {
+  uint32_t kk = k - (k >= prim ? 1u : 0u);  // skip the sentinel row
+  kk = min(kk, seq_len > 0 ? seq_len - 1u : 0u);
+  uint32_t blk = min(kk >> shift, n_blk - 1u);
+  Where w;
+  w.row = (uint64_t)strand * n_blk + blk;
+  w.off = kk & ((1u << shift) - 1u);
+  return w;
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint32_t* v, uint32_t c) {
+  return c == 0 ? v[0] : c == 1 ? v[1] : c == 2 ? v[2] : c == 3 ? v[3] : 0u;
+}
+
+// Count of base c in the row's text words before-and-including `off`,
+// plus the row's checkpoint for c.
+template <int WPB>
+__device__ __forceinline__ uint32_t count_base(const uint32_t (&r)[4 + WPB],
+                                               uint32_t c, uint32_t off) {
+  const uint32_t nw = off >> 4;              // fully counted words
+  const uint32_t nb = (off & 15u) + 1u;      // bases counted in word nw
+  const uint32_t pm = ~((1u << ((16u - nb) * 2u)) - 1u);
+  const uint32_t pat = 0x55555555u * c;
+  uint32_t cnt = pick4(r, c);
+#pragma unroll
+  for (int j = 0; j < WPB; ++j) {
+    const uint32_t x = ~(r[4 + j] ^ pat);
+    const uint32_t t = x & (x >> 1) & 0x55555555u;
+    if ((uint32_t)j < nw)
+      cnt += __popc(t);
+    else if ((uint32_t)j == nw)
+      cnt += __popc(t & pm);
+  }
+  return cnt;
+}
+
+// One thread per (query q, bound b): b = 0 asks occ at k[q] - 1 (u32 wrap,
+// so k == 0 gives NEG1), b = 1 at l[q].  C4 = true writes all four counts
+// (occ4), else only base c[q] (occ1).
+template <int WPB, bool C4>
+__global__ void occ_pair_kernel(const uint32_t* __restrict__ blocks,
+                                const int64_t* __restrict__ primary,
+                                const int64_t* __restrict__ l2diff,
+                                const int64_t* __restrict__ strand,
+                                const int64_t* __restrict__ kq,
+                                const int64_t* __restrict__ lq,
+                                const int64_t* __restrict__ cq,
+                                int64_t* __restrict__ out, int m,
+                                uint32_t seq_len, uint32_t n_blk, int shift) {
+  constexpr int ROWW = 4 + WPB;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= 2 * (int64_t)m) return;
+  const int64_t q = t >> 1;
+  const int b = (int)(t & 1);
+  const uint32_t k = b ? (uint32_t)lq[q] : (uint32_t)kq[q] - 1u;
+  const uint32_t s = (uint32_t)strand[q];
+  const Where w = locate(k, (uint32_t)primary[s], seq_len, n_blk, shift, s);
+  uint32_t r[ROWW];
+  load_row<ROWW>(blocks + w.row * ROWW, r);
+  const bool neg = k == kNeg1;
+  const bool full = k == seq_len;
+  if (C4) {
+#pragma unroll
+    for (uint32_t c = 0; c < 4; ++c) {
+      uint32_t v = count_base<WPB>(r, c, w.off);
+      if (neg) v = 0;
+      if (full) v = (uint32_t)l2diff[c];
+      out[t * 4 + c] = (int64_t)v;
+    }
+  } else {
+    const uint32_t c = (uint32_t)cq[q];
+    uint32_t v = count_base<WPB>(r, c, w.off);
+    if (neg) v = 0;
+    if (full) v = c < 4 ? (uint32_t)l2diff[c] : 0u;
+    out[t] = (int64_t)v;
+  }
+}
+
+template <bool C4>
+int launch(const void* blocks, const void* primary, const void* l2diff,
+           const void* strand, const void* k, const void* l, const void* c,
+           void* out, int m, int64_t seq_len, int64_t n_blk, int intv,
+           void* stream) {
+  if (m <= 0) return 0;
+  const int threads = 256;
+  const int grid = (int)((2 * (int64_t)m + threads - 1) / threads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* bl = static_cast<const uint32_t*>(blocks);
+  const int64_t* pr = static_cast<const int64_t*>(primary);
+  const int64_t* ld = static_cast<const int64_t*>(l2diff);
+  const int64_t* sp = static_cast<const int64_t*>(strand);
+  const int64_t* kp = static_cast<const int64_t*>(k);
+  const int64_t* lp = static_cast<const int64_t*>(l);
+  const int64_t* cp = static_cast<const int64_t*>(c);
+  int64_t* op = static_cast<int64_t*>(out);
+  const uint32_t sl = (uint32_t)seq_len, nb = (uint32_t)n_blk;
+  switch (intv) {
+    case 32:
+      occ_pair_kernel<2, C4><<<grid, threads, 0, st>>>(
+          bl, pr, ld, sp, kp, lp, cp, op, m, sl, nb, 5);
+      break;
+    case 64:
+      occ_pair_kernel<4, C4><<<grid, threads, 0, st>>>(
+          bl, pr, ld, sp, kp, lp, cp, op, m, sl, nb, 6);
+      break;
+    case 128:
+      occ_pair_kernel<8, C4><<<grid, threads, 0, st>>>(
+          bl, pr, ld, sp, kp, lp, cp, op, m, sl, nb, 7);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ibwa_occ4_pair(const void* blocks, const void* primary,
+                              const void* l2diff, const void* strand,
+                              const void* k, const void* l, void* out, int m,
+                              int64_t seq_len, int64_t n_blk, int intv,
+                              void* stream) {
+  return launch<true>(blocks, primary, l2diff, strand, k, l, nullptr, out, m,
+                      seq_len, n_blk, intv, stream);
+}
+
+extern "C" int ibwa_occ1_pair(const void* blocks, const void* primary,
+                              const void* l2diff, const void* strand,
+                              const void* k, const void* l, const void* c,
+                              void* out, int m, int64_t seq_len,
+                              int64_t n_blk, int intv, void* stream) {
+  return launch<false>(blocks, primary, l2diff, strand, k, l, c, out, m,
+                       seq_len, n_blk, intv, stream);
+}

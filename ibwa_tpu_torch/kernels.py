@@ -1,0 +1,118 @@
+"""Build, load and count the hand-written CUDA kernels (`csrc/*.cu`).
+
+The sources are compiled with nvcc at first use into one shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers: that
+keeps a cold build to seconds).  The library is keyed by a hash of the
+sources, so an edited kernel is rebuilt and a stale one never loads.
+Nothing is built or loaded at import time: the CPU-only test machine has
+no nvcc and never calls `lib()`.
+
+`launches` counts, per kernel, the launches the wrappers made; a run
+resets it with `reset_launches()` and reads it after, to show that its
+main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
+    "ibwa_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+launches: collections.Counter = collections.Counter()
+build_info: dict = {}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_SIGNATURES = {
+    # blocks, primary, l2diff, strand, k, l, out, m, seq_len, n_blk,
+    # intv, stream
+    "ibwa_occ4_pair": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
+    # ... the same with the base code c before out
+    "ibwa_occ1_pair": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
+    # slot0, act, cv, ofs, kv, ck, cl, cm1, cm2, key, sk, sl, sm1, sm2,
+    # ovf, npush, pslot, pkey, pk, pl, pm1, pm2, B, acap, stream
+    "ibwa_stack_update": [_P] * 22 + [_I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _build() -> pathlib.Path:
+    srcs = _sources()
+    h = hashlib.sha256()
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"libibwa_kernels_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        build_info.update(path=str(so), seconds=0.0, cached=True, log="")
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
+                           f"{r.stdout}{r.stderr}")
+    os.replace(tmp, so)
+    build_info.update(path=str(so), seconds=time.perf_counter() - t0,
+                      cached=False, log=r.stdout + r.stderr)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The kernel library, built on first call.  Raises if the build
+    fails; there is no fallback."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(_build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero cudaGetLastError() code from a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")

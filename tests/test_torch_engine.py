@@ -1,0 +1,234 @@
+"""ibwa_tpu_torch's search engine against ibwa_tpu's JAX engine and the
+host emulator (engine_ref, the semantic oracle), on the CPU.
+
+* widths / meta planes equal JAX's `_compute_widths` / `_pack_meta`;
+* step-level parity: from one JAX `_init_state`, 32 JAX `_search_step`s
+  (with `stack_update_xla`) and 32 port steps leave every one of the 30
+  state planes equal after every step — the test that finds a broken step;
+* the 5 engine cases of test_engine_jax equal engine_ref hit for hit;
+* chunked dispatch, variable read lengths, lane-count invariance and the
+  fixed full host share.
+Exact comparison everywhere: this is integer search.
+"""
+
+import dataclasses
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from ibwa_tpu.align import engine_jax, engine_ref
+from ibwa_tpu.align.opts import GapOpt, cal_maxdiff
+from ibwa_tpu.fm import device as jdev
+from ibwa_tpu.fm.fmindex import FmIndex
+from ibwa_tpu.index import builder
+
+from ibwa_tpu_torch import convert
+from ibwa_tpu_torch.align import engine
+from ibwa_tpu_torch.fm import device as tdev
+
+from test_engine_jax import CASES, _make_reads
+
+# small tensors: one intra-op thread (the suite runs files in parallel
+# workers, and more threads only spin)
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def small_index(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("teng")
+    rng = random.Random(4242)
+    seq = "".join(rng.choice("ACGT") for _ in range(40000))
+    fa = tmp / "g.fa"
+    with open(fa, "w") as f:
+        f.write(">c1\n")
+        for i in range(0, len(seq), 70):
+            f.write(seq[i:i + 70] + "\n")
+    builder.bwa_index(str(fa))
+    fms = (FmIndex(builder.load_index(str(fa), 0)),
+           FmIndex(builder.load_index(str(fa), 1)))
+    return fms, seq
+
+
+@pytest.fixture
+def small_lanes(monkeypatch):
+    """CPU-sized lanes; the heavy-tail cap off so the device path must
+    match the oracle on its own (capacity fallbacks only)."""
+    monkeypatch.setattr(engine, "DEV_BATCH", 64)
+    monkeypatch.setattr(engine, "ITER_CAP", 1 << 30)
+
+
+def _batch(fms, seqs, rseqs, opt):
+    """align_batch's preamble: configs of both engines + packed inputs."""
+    lens = np.array([len(s) for s in seqs], dtype=np.int64)
+    bopt = dataclasses.replace(opt)
+    if opt.fnr > 0.0:
+        bopt.max_diff = cal_maxdiff(int(lens.max()), thres=opt.fnr)
+        md = np.array([cal_maxdiff(int(n), thres=opt.fnr) for n in lens])
+    else:
+        md = np.full(len(seqs), bopt.max_diff)
+    if bopt.max_diff < bopt.max_gapo:
+        bopt.max_gapo = bopt.max_diff
+    L = int(max(8, (lens.max() + 7) // 8 * 8))
+    n = fms[0].seq_len
+    jcfg = engine_jax.make_config(L, int(md.max()), bopt, seq_len=n,
+                                  dimer=False)
+    tcfg = engine.make_config(L, int(md.max()), bopt, seq_len=n)
+    for f in dataclasses.fields(tcfg):
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    assert not jcfg.pallas_stack and not jcfg.dimer_unroll
+    sq, ssq, hs, bad = engine._pack_reads(seqs, rseqs, lens, md, L,
+                                          tcfg.SL, opt.seed_len)
+    return jcfg, tcfg, (sq, lens, md.astype(np.int64), hs, ssq, bad)
+
+
+def _assert_state_equal(tst, jst, step):
+    got = convert.state_to_tuple(tst)
+    for name, g, w in zip(engine.FIELDS, got, jst):
+        w = np.asarray(w)
+        assert g.dtype == w.dtype, (step, name)
+        np.testing.assert_array_equal(g, w, err_msg=f"step {step}: {name}")
+
+
+def test_widths_and_meta_match_jax(small_index):
+    fms, seq = small_index
+    seqs, rseqs = _make_reads(seq, n=24, read_len=60, seed=3)
+    jcfg, tcfg, (sq, lens, md, hs, ssq, bad) = _batch(fms, seqs, rseqs,
+                                                      GapOpt())
+    jfm = jdev.build_device_pair(fms[0], fms[1], dimer=False)
+    tfm = tdev.build_device_pair(fms[0], fms[1], "cpu")
+    jw, jbid = engine_jax._compute_widths(jfm, jnp.asarray(sq),
+                                          jnp.asarray(lens, jnp.int32),
+                                          tcfg.L)
+    tw, tbid = engine._compute_widths(tfm, torch.from_numpy(sq),
+                                      torch.from_numpy(lens), tcfg.L)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(tbid.numpy(), np.asarray(jbid))
+    np.testing.assert_array_equal(
+        engine._pack_meta(tw, tbid).numpy(),
+        np.asarray(engine_jax._pack_meta(jw, jbid)))
+    # the full per-chunk planes, seed widths included
+    big = engine.big_planes(tcfg, tfm, torch.from_numpy(sq),
+                            torch.from_numpy(lens), torch.from_numpy(hs),
+                            torch.from_numpy(ssq))
+    jst = engine_jax._init_state(
+        jcfg, jfm, jnp.asarray(sq), jnp.asarray(lens, jnp.int32),
+        jnp.asarray(md, jnp.int32), jnp.asarray(hs), jnp.asarray(ssq),
+        jnp.asarray(bad))
+    for t, j in zip(big, jst[11:14]):    # w, bid, meta
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("case", ["default", "gappy"])
+def test_step_parity_32_steps(small_index, case):
+    fms, seq = small_index
+    seqs, rseqs = _make_reads(seq, n=24, read_len=24, seed=5)
+    jcfg, tcfg, (sq, lens, md, hs, ssq, bad) = _batch(fms, seqs, rseqs,
+                                                      CASES[case])
+    jfm = jdev.build_device_pair(fms[0], fms[1], dimer=False)
+    tfm = tdev.build_device_pair(fms[0], fms[1], "cpu")
+    jsq = jnp.asarray(sq)
+    jst = engine_jax._init_state(
+        jcfg, jfm, jsq, jnp.asarray(lens, jnp.int32),
+        jnp.asarray(md, jnp.int32), jnp.asarray(hs), jnp.asarray(ssq),
+        jnp.asarray(bad))
+    tst = convert.state_from_jax_tuple(jst)
+    _assert_state_equal(tst, jst, 0)
+    jstep = jax.jit(engine_jax._search_step, static_argnums=0)
+    tsq = torch.from_numpy(sq)
+    for k in range(1, 33):
+        jst = jstep(jcfg, jfm, jsq, jst)
+        tst = engine._search_step(tcfg, tfm, tsq, tst)
+        _assert_state_equal(tst, jst, k)
+    # the steps reached hit bookkeeping and the gap_shadow refresh
+    assert int(tst.n_hits.sum()) > 0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_engine_cases_match_ref(small_index, case, small_lanes):
+    fms, seq = small_index
+    opt = CASES[case]
+    seqs, rseqs = _make_reads(seq)
+    ref = engine_ref.align_batch(fms, seqs, rseqs, opt)
+    eng = engine.TorchAlnEngine(fms, "cpu")
+    try:
+        got = eng.align_batch(seqs, rseqs, opt)
+    finally:
+        eng.close()
+    assert len(got) == len(ref)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g == r, f"read {i}: {g} != {r}"
+    # the device path must do nearly all the work itself
+    assert eng.stats["fallback_reads"] <= len(seqs) // 10
+
+
+def test_chunked_dispatch(small_index, small_lanes, monkeypatch):
+    """PERSIST_N < n_reads: chunk results and background fallback futures
+    merge back in read order."""
+    fms, seq = small_index
+    opt = CASES["seeded"]
+    seqs, rseqs = _make_reads(seq)
+    ref = engine_ref.align_batch(fms, seqs, rseqs, opt)
+    monkeypatch.setattr(engine, "PERSIST_N", 16)      # 40 reads -> 3 chunks
+    eng = engine.TorchAlnEngine(fms, "cpu")
+    try:
+        assert eng.align_batch(seqs, rseqs, opt) == ref
+    finally:
+        eng.close()
+
+
+def test_lane_count_invariant(small_index, monkeypatch):
+    """64 and 128 persistent lanes give the same hits (and the oracle's)."""
+    fms, seq = small_index
+    opt = CASES["exact"]
+    seqs, rseqs = _make_reads(seq, n=150, seed=9)
+    ref = engine_ref.align_batch(fms, seqs, rseqs, opt)
+    monkeypatch.setattr(engine, "ITER_CAP", 1 << 30)
+    for lanes in (64, 128):
+        monkeypatch.setattr(engine, "DEV_BATCH", lanes)
+        eng = engine.TorchAlnEngine(fms, "cpu")
+        try:
+            assert eng.align_batch(seqs, rseqs, opt) == ref, lanes
+        finally:
+            eng.close()
+
+
+def test_variable_lengths(small_index, small_lanes):
+    fms, seq = small_index
+    rng = random.Random(1)
+    nt4 = {"A": 0, "C": 1, "G": 2, "T": 3}
+    seqs, rseqs = [], []
+    for ln in [36, 50, 75, 100, 120, 36, 64]:
+        pos = rng.randrange(0, len(seq) - 130)
+        codes = np.array([nt4[c] for c in seq[pos:pos + ln]], dtype=np.uint8)
+        seqs.append(codes[::-1].copy())
+        rseqs.append((3 - codes)[::-1].copy())
+    opt = GapOpt()
+    ref = engine_ref.align_batch(fms, seqs, rseqs, opt)
+    eng = engine.TorchAlnEngine(fms, "cpu")
+    try:
+        assert eng.align_batch(seqs, rseqs, opt) == ref
+    finally:
+        eng.close()
+
+
+def test_fixed_full_host_share(small_index, monkeypatch):
+    """IBWA_HOST_FRAC is a FIXED share: 1.0 sends the whole batch to the
+    native search and the controller does not adapt it."""
+    fms, seq = small_index
+    opt = CASES["default"]
+    seqs, rseqs = _make_reads(seq)
+    ref = engine_ref.align_batch(fms, seqs, rseqs, opt)
+    monkeypatch.setenv("IBWA_HOST_FRAC", "1.0")
+    eng = engine.TorchAlnEngine(fms, "cpu")
+    try:
+        assert eng._frac_fixed and eng.host_frac == 1.0
+        assert eng.align_batch(seqs, rseqs, opt) == ref
+    finally:
+        eng.close()
+    assert eng.host_frac == 1.0
+    assert eng.stats["host_reads"] == len(seqs)
+    assert eng.stats["device_reads"] == 0
