@@ -1,26 +1,48 @@
 """Smoke test of ibwa_tpu_torch on one CUDA card: builds the kernels,
-checks them against their plain twins, and drives `aln` end to end.
+checks each against its plain PyTorch version, and drives every path of
+the port end to end.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: a CUDA card is required (there is no CPU path)
-  2. build: csrc/*.cu with nvcc for sm_90a
-  3. kernel vs twin, bitwise, at the main path's shapes: K1 stack_update
-     at B=1024 x ACAP 256 and 1024; K2 occ4_pair / occ1_pair over the
-     main path's block table; each timed beside its twin
-  4. main path: a 32 Mbp repeat-structured genome (bench.py's recipe,
-     indexed and cached under .bench/smoke/), 16,384 simulated 100 bp
-     reads; `ibwa_tpu_torch aln` device-only (IBWA_HOST_FRAC=0), then
-     hybrid; each .sai must be byte-identical to `--engine native`, and
-     every kernel must have launched during the device-only run
+  2. build: csrc/*.cu with nvcc for sm_90a (one nvcc per source, all
+     started together) and the native host library with g++, both into
+     build/ibwa_tpu_torch/
+  3. kernel vs plain version, bitwise, at the paths' shapes, each timed
+     beside its plain version: K1 stack_update at B=1024 x ACAP 256 and
+     1024; K2 occ4_pair / occ1_pair over the aln path's block table; K3
+     chase and K4 chase_mw (W=4) on the probe's three tables; K5 lf_walk
+     on 131,072 random rows plus the edge rows, at block intervals 32, 64
+     and 128
+  4. the paths, each with the launch counts set to 0 just before it and
+     read just after:
+     a. the dependent-gather probe (`bench_chase.probe`) on three tables
+        made on the card: 500,000 x 128 words (256 MB, the TPU probe's
+        shape), 1,000,000 x 8 words (32 MB, inside the 50 MB L2) and
+        64,000,000 x 8 words (2 GB, HBM: a human-scale block table)
+     b. the SA walker: `DeviceWalker.resolve` on 2,097,152 random
+        (strand, row) pairs of the smoke index, equal to the native
+        host `sa_lookup`
+     c. `aln`: a 32 Mbp repeat-structured genome (indexed by the port's
+        `index` and cached under .bench/smoke/), 16,384 simulated 100 bp
+        reads; `ibwa_tpu_torch aln` device-only (IBWA_HOST_FRAC=0), then
+        hybrid; each .sai must be byte-identical to `--engine native`
+     Every kernel must have launched on its path.
   5. the result lines: the card, the kernel table, and the contract line
+
+`bound_ms` of the kernel table is the least time the card could take for
+the call: the larger of the bytes the call must move over 3.35 TB/s and
+its integer operations over 67 Tops/s (the card's non-tensor-core rate);
+for the data-dependent kernels it counts the rows this run fetched.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
+import itertools
 import json
 import os
 import pathlib
@@ -33,6 +55,14 @@ SEED = 20261016
 N_READS = 16384
 READ_LEN = 100
 B_LANES = 1024
+WALK_PAIRS = 2_097_152          # 16 dispatches of the walker
+PROBE_STEPS, PROBE_DELTA = 256, 2048
+PROBE_LANES = [32, 256, 1024]   # 32: one warp, the fetch latency itself
+PROBE_TABLES = [("a", 500_000, 128),      # the TPU probe's shape, 256 MB
+                ("b", 1_000_000, 8),      # the smoke table's shape, 32 MB
+                ("c", 64_000_000, 8)]     # human scale, 2 GB
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12
 REPO = pathlib.Path(__file__).resolve().parent
 WORK = REPO / ".bench" / "smoke"
 
@@ -45,7 +75,7 @@ def timed_ms(fn, reps: int) -> tuple[float, float]:
     """(device ms, call ms) per call of fn over `reps` calls, after one
     warm-up call.  Device ms is the summed time of the kernels the calls
     ran (torch.profiler); call ms is the CUDA-event span of the calls,
-    which at these sizes is set by the host launching them."""
+    which at small sizes is set by the host launching them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -80,6 +110,19 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the integer rate, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def check_stack(dev) -> dict:
     """K1 against stack_update_plain on random planes (ties, full rows,
     inactive lanes) at B=1024 and both arena sizes."""
@@ -95,7 +138,7 @@ def check_stack(dev) -> dict:
         got = sk.stack_update(*[a.clone() for a in args])
         err = max_abs_err(got, want)
         if err:
-            raise AssertionError(f"stack_update ACAP={acap}: kernel != twin "
+            raise AssertionError(f"stack_update ACAP={acap}: kernel != plain "
                                  f"(max abs err {err})")
         scratch = [a.clone() for a in args]
         ms, call_ms = timed_ms(lambda: sk.stack_update(*scratch), 200)
@@ -105,14 +148,21 @@ def check_stack(dev) -> dict:
             f"device ms/call kernel {ms:.5f}, plain {plain_ms:.5f}; "
             f"call ms kernel {call_ms:.5f}, plain {plain_call_ms:.5f}")
         if acap == 256:   # the main path's arena (make_config, 32 Mbp)
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # must move: the step's inputs, the whole key plane (free-slot
+            # ranks and the argmin need every slot), the popped entry of
+            # the 4 payload planes, <= 10 child slots + the freed one in
+            # all 5 planes, and the 8 per-lane outputs
+            slots = B_LANES * 4 * (4 + 5 * (sk.NCH + 1))
+            moved = nbytes(*args[:10]) + slots + B_LANES * (1 + 7 * 8)
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   **bound(moved, 4 * B_LANES * acap), "library_ms": None}
     kernels.reset_launches()
     return row
 
 
 def check_occ(fm, dev) -> dict:
-    """K2 against its twins over `fm`'s table at random and edge bounds,
-    at the step's shape (B lanes) and the width pass's (2 x 2048)."""
+    """K2 against its plain versions over `fm`'s table at random and edge
+    bounds, at the step's shape (B lanes) and the width pass's (2 x 2048)."""
     import numpy as np
     import torch
     from ibwa_tpu_torch import kernels
@@ -131,14 +181,15 @@ def check_occ(fm, dev) -> dict:
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         strand, kq, lq = t(rng.integers(0, 2, m)), t(k), t(l)
         c = t(rng.integers(0, 4, m))
-        for name, kern, plain in (
+        for name, kern, plain, n_in in (
                 ("occ4_pair", lambda: fd.occ4_pair(fm, strand, kq, lq),
-                 lambda: fd.occ4_pair_plain(fm, strand, kq, lq)),
+                 lambda: fd.occ4_pair_plain(fm, strand, kq, lq), 3),
                 ("occ1_pair", lambda: fd.occ1_pair(fm, strand, kq, lq, c),
-                 lambda: fd.occ1_pair_plain(fm, strand, kq, lq, c))):
-            err = max_abs_err([kern()], [plain()])
+                 lambda: fd.occ1_pair_plain(fm, strand, kq, lq, c), 4)):
+            out = kern()
+            err = max_abs_err([out], [plain()])
             if err:
-                raise AssertionError(f"{name} m={m}: kernel != twin "
+                raise AssertionError(f"{name} m={m}: kernel != plain "
                                      f"(max abs err {err})")
             ms, call_ms = timed_ms(kern, 200)
             plain_ms, plain_call_ms = timed_ms(plain, 50)
@@ -146,17 +197,187 @@ def check_occ(fm, dev) -> dict:
                 f"device ms/call kernel {ms:.5f}, plain {plain_ms:.5f}; "
                 f"call ms kernel {call_ms:.5f}, plain {plain_call_ms:.5f}")
             if m == B_LANES:
+                # must move: the queries, one table row per (query,
+                # bound), the counts; ~6 integer ops per word and base
+                row_bytes = 4 * (4 + fm.wpb)
+                moved = n_in * 8 * m + 2 * m * row_bytes + nbytes(out)
+                n_c = 4 if name == "occ4_pair" else 1
                 rows[name] = {"max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms}
+                              "plain_ms": plain_ms,
+                              **bound(moved, 2 * m * fm.wpb * n_c * 6),
+                              "library_ms": None}
     kernels.reset_launches()
     return rows
 
 
+def check_chase(tables: dict, dev) -> dict:
+    """K3 and K4 (W=4) against chase_plain, bitwise on idx and acc, at
+    B in {256, 1024} on each table, K3 also at the walker's 131,072 lanes
+    on the 2 GB table and at one warp (32).  The table row of each kernel
+    is timed at B=1024 on the 2 GB table, every call on chains of its own
+    (a repeated chain would find its 8 MB of rows in the L2 cache)."""
+    import torch
+    from ibwa_tpu_torch import bench_chase as bc
+    from ibwa_tpu_torch import kernels
+    rows = {}
+    for label, table in tables.items():
+        n_rows, roww = table.shape
+
+        def run(name, idx0):
+            if name == "chase":
+                return bc.chase(table, idx0, PROBE_STEPS, n_rows)
+            return bc.chase_mw(table, idx0, PROBE_STEPS, n_rows, 4)
+
+        lanes = [32, 256, 1024] + ([131072] if label == "c" else [])
+        for B in lanes:
+            starts = bc.start_rows(n_rows, B, 64 if B == 1024 else 1, dev)
+            turn = itertools.count()
+            fresh = lambda: starts[next(turn) % len(starts)]
+            want = bc.chase_plain(table, starts[0], PROBE_STEPS, n_rows)
+            for name in ("chase", "chase_mw") if B in (256, 1024) \
+                    else ("chase",):
+                got = run(name, starts[0])
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                if err:
+                    raise AssertionError(
+                        f"{name} table {label} B={B}: kernel != plain "
+                        f"(max abs err {err})")
+                if label != "c" or B != 1024:
+                    continue
+                ms, _ = timed_ms(lambda: run(name, fresh()), 20)
+                plain_ms, _ = timed_ms(lambda: bc.chase_plain(
+                    table, fresh(), PROBE_STEPS, n_rows), 3)
+                # must move: every fetched row once, idx in, 2 out
+                moved = B * PROBE_STEPS * roww * 4 + 3 * B * 4
+                rows[name] = {"max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms,
+                              **bound(moved, 3 * B * PROBE_STEPS),
+                              "library_ms": None}
+                log(f"{'K3' if name == 'chase' else 'K4'} {name} table "
+                    f"{label} B={B} steps={PROBE_STEPS}: device ms/call "
+                    f"kernel {ms:.5f}, plain {plain_ms:.5f}, bound "
+                    f"{rows[name]['bound_ms']:.5f} "
+                    f"({rows[name]['bound_by']})")
+        log(f"K3/K4 table {label} ({n_rows} x {roww} words): bitwise equal "
+            f"to chase_plain at B={lanes}")
+    kernels.reset_launches()
+    return rows
+
+
+def walk_edges(fms) -> tuple:
+    """Rows on and next to sampled slots, and the primary rows, on both
+    strands."""
+    import numpy as np
+    intv, n = fms[0].sa_intv, fms[0].seq_len
+    edge = [base + d for base in (0, intv, 7 * intv, n // intv * intv)
+            for d in (-1, 0, 1) if 0 <= base + d <= n]
+    edge += [fms[0].primary, fms[1].primary, n]
+    rows = np.array(edge * 2, dtype=np.uint32)
+    strand = np.array([0] * len(edge) + [1] * len(edge), dtype=np.uint32)
+    return strand, rows
+
+
+def check_walk(fms, dev) -> dict:
+    """K5 against lf_walk_plain, bitwise on (add, kfin), for 131,072 random
+    (strand, row) pairs plus the edge rows, at block intervals 32, 64 and
+    128; timed at 64, the default table."""
+    import numpy as np
+    import torch
+    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch.fm import walk
+    from ibwa_tpu_torch.fm.device import build_device_pair
+    rng = np.random.default_rng(SEED)
+    es, ek = walk_edges(fms)
+    rows = np.concatenate([rng.integers(0, fms[0].seq_len + 1, 131072), ek])
+    strand = np.concatenate([rng.integers(0, 2, 131072), es])
+    t = lambda a: torch.from_numpy(a.astype(np.int64)).to(dev)
+    ts, tk = t(strand), t(rows)
+    mask = fms[0].sa_intv - 1
+    row = {}
+    for intv in (32, 128, 64):
+        fm = build_device_pair(fms[0], fms[1], dev, intv=intv)
+        want = walk.lf_walk_plain(fm, ts, tk, mask)
+        got = walk.lf_walk(fm, ts, tk, mask)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"lf_walk intv={intv}: kernel != plain "
+                                 f"(max abs err {err})")
+        if intv == 64:
+            ms, call_ms = timed_ms(lambda: walk.lf_walk(fm, ts, tk, mask), 20)
+            plain_ms, _ = timed_ms(
+                lambda: walk.lf_walk_plain(fm, ts, tk, mask), 2)
+            steps = int(got[0].sum())
+            # must move: the queries, one row per step taken, 2 outputs
+            moved = 4 * 8 * len(rows) + steps * 4 * (4 + fm.wpb)
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   **bound(moved, steps * (6 * fm.wpb + 20)),
+                   "library_ms": None, "_longest": int(got[0].max())}
+            log(f"K5 lf_walk n={len(rows)} intv=64: bitwise equal; {steps} "
+                f"steps in all, longest walk {int(got[0].max())}; device "
+                f"ms/call kernel {ms:.5f}, plain {plain_ms:.5f}; call ms "
+                f"kernel {call_ms:.5f}; bound {row['bound_ms']:.5f} "
+                f"({row['bound_by']})")
+        else:
+            log(f"K5 lf_walk n={len(rows)} intv={intv}: bitwise equal")
+        del fm
+    kernels.reset_launches()
+    return row
+
+
+def run_probe(tables: dict) -> list[dict]:
+    """The probe's report on each table; fails on any parity miss."""
+    from ibwa_tpu_torch import bench_chase as bc
+    records = []
+    for label, table in tables.items():
+        lanes = PROBE_LANES + ([131072] if label == "c" else [])
+        records += bc.probe(table, lanes, [4], PROBE_STEPS, PROBE_DELTA,
+                            reps=3, plain_mw=False, label=label)
+    bad = [r for r in records if not r["parity"]]
+    if bad:
+        raise AssertionError(f"probe parity failed: {bad}")
+    return records
+
+
+def run_walker(fms, dev) -> None:
+    """DeviceWalker.resolve on WALK_PAIRS random pairs against the native
+    host SA walk on the same pairs."""
+    import numpy as np
+    import torch
+    from ibwa_tpu_torch import native
+    from ibwa_tpu_torch.fm.walk import DeviceWalker
+    rng = np.random.default_rng(SEED + 1)
+    rows = rng.integers(0, fms[0].seq_len + 1, WALK_PAIRS).astype(np.uint32)
+    strand = rng.integers(0, 2, WALK_PAIRS).astype(np.uint32)
+    walker = DeviceWalker(fms[0], fms[1], dev)
+    walker.resolve(strand[:1024], rows[:1024])          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = walker.resolve(strand, rows)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = np.empty(WALK_PAIRS, dtype=np.uint32)
+    for s in (0, 1):
+        f = fms[s]
+        sel = strand == s
+        want[sel] = native.sa_lookup(f._interleaved, f.primary, f.L2,
+                                     f.seq_len, f.sa_intv, f.sa, rows[sel])
+    host_s = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"DeviceWalker.resolve differs from the host "
+                             f"sa_lookup on {bad}/{WALK_PAIRS} pairs")
+    log(f"walker: {WALK_PAIRS} pairs in {-(-WALK_PAIRS // walker.lanes)} "
+        f"dispatches equal to the native sa_lookup; wall DeviceWalker."
+        f"resolve {dev_s:.3f} s ({WALK_PAIRS / dev_s:.0f} rows/s), native "
+        f"sa_lookup {host_s:.3f} s ({WALK_PAIRS / host_s:.0f} rows/s)")
+
+
 def make_inputs() -> tuple[pathlib.Path, pathlib.Path]:
-    """Genome (bench.py's recipe, 32 Mbp), its index, and the reads, all
-    from SEED; cached under .bench/smoke/."""
-    import bench
-    from ibwa_tpu.index.builder import bwa_index
+    """Genome (`simulate.make_genome`, 32 Mbp), its index, and the reads,
+    all from SEED; cached under .bench/smoke/."""
+    from ibwa_tpu_torch import cli, simulate
     WORK.mkdir(parents=True, exist_ok=True)
     fa = WORK / f"genome_{SEED}.fa"
     fq = WORK / f"reads_{SEED}_{N_READS}.fq"
@@ -164,7 +385,7 @@ def make_inputs() -> tuple[pathlib.Path, pathlib.Path]:
         return fa, fq
     t0 = time.perf_counter()
     rng = random.Random(SEED)
-    seq = bench.make_genome(rng)
+    seq = simulate.make_genome(rng)
     with open(fa, "w") as f:
         f.write(">smoke_chr\n")
         for i in range(0, len(seq), 70):
@@ -183,7 +404,9 @@ def make_inputs() -> tuple[pathlib.Path, pathlib.Path]:
     log(f"genome {len(seq)} bp + {N_READS} reads made in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    bwa_index(str(fa))
+    rc = cli.main(["index", str(fa)])
+    if rc != 0:
+        raise AssertionError(f"index exited {rc}")
     log(f"indexed in {time.perf_counter() - t0:.1f} s")
     return fa, fq
 
@@ -208,41 +431,12 @@ def run_aln(args: list[str], out: pathlib.Path) -> dict:
     return stats
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("[smoke] no CUDA device: this check runs on the card only",
-              file=sys.stderr)
-        return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    dev = torch.device("cuda", 0)
-    log(f"device {torch.cuda.get_device_name(0)} ({smi}); torch "
-        f"{torch.__version__}, CUDA {torch.version.cuda}")
-
-    # ---- 2. build
+def run_aln_paths(fa, fq) -> tuple[dict, dict]:
+    """`aln` native, device-only and hybrid; the two device .sai must be
+    byte-identical to the native one.  Returns the launch counts of the
+    device-only and the hybrid run."""
     from ibwa_tpu_torch import kernels
-    kernels.lib()
-    info = kernels.build_info
-    log(f"kernels built in {info['seconds']:.1f} s -> {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-
-    # ---- 3. kernel vs twin (K2 needs the main path's table)
-    fa, fq = make_inputs()
-    from ibwa_tpu.fm.fmindex import FmIndex
-    from ibwa_tpu.index.builder import load_index
-    from ibwa_tpu_torch.fm.device import build_device_pair
-    fms = (FmIndex(load_index(str(fa), 0)), FmIndex(load_index(str(fa), 1)))
-    fm = build_device_pair(fms[0], fms[1], dev)
-    rows = {"stack_update": check_stack(dev), **check_occ(fm, dev)}
-    del fm, fms
-
-    # ---- 4. main path
-    from ibwa_tpu.io import sai
+    from ibwa_tpu_torch.io import sai
     sais = {name: WORK / f"{name}.sai"
             for name in ("native", "device_only", "hybrid")}
     base = [str(fa), str(fq)]
@@ -260,10 +454,6 @@ def main() -> int:
     for name in ("device_only", "hybrid"):
         if sais[name].read_bytes() != want:
             raise AssertionError(f"{name} .sai differs from --engine native")
-    for name in rows:
-        if launches.get(name, 0) <= 0 or hybrid_launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main "
-                                 f"path ({launches}, {hybrid_launches})")
     n_hit = sum(1 for hits in sai.iter_sai(str(sais["native"])) if hits)
     if not N_READS * 0.9 <= n_hit <= N_READS:
         raise AssertionError(f"only {n_hit}/{N_READS} reads have hits")
@@ -278,16 +468,110 @@ def main() -> int:
             f"{r.get('iterations', 0)}")
     log(f".sai byte-identical to --engine native (device-only, hybrid); "
         f"{n_hit}/{N_READS} reads with hits; launches {launches}")
+    return launches, hybrid_launches
+
+
+SOURCES = {
+    "stack_update": ("ibwa_tpu_torch/csrc/stack_update.cu",
+                     "ibwa_tpu/align/stack_kernel.py:115"),
+    "occ4_pair": ("ibwa_tpu_torch/csrc/occ.cu", "ibwa_tpu/fm/device.py:334"),
+    "occ1_pair": ("ibwa_tpu_torch/csrc/occ.cu", "ibwa_tpu/fm/device.py:430"),
+    "chase": ("ibwa_tpu_torch/csrc/chase.cu", "scripts/bench_chase.py:168"),
+    "chase_mw": ("ibwa_tpu_torch/csrc/chase.cu",
+                 "scripts/bench_chase.py:258"),
+    "lf_walk": ("ibwa_tpu_torch/csrc/lf_walk.cu", "ibwa_tpu/fm/walk.py:78"),
+}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("[smoke] no CUDA device: this check runs on the card only",
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    dev = torch.device("cuda", 0)
+    log(f"device {torch.cuda.get_device_name(0)} ({smi}); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- 2. build: nvcc and g++ side by side
+    from ibwa_tpu_torch import kernels, native
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.load)
+        kernels.lib()
+        info = kernels.build_info
+        log(f"kernels built in {info['seconds']:.1f} s -> {info['path']}")
+        host_lib.result()
+    log(f"native host library ready; both builds {time.perf_counter() - t0:.1f} s")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # ---- 3. kernel vs plain version (K2 and K5 need the aln path's index)
+    fa, fq = make_inputs()
+    from ibwa_tpu_torch import bench_chase
+    from ibwa_tpu_torch.fm.device import build_device_pair
+    from ibwa_tpu_torch.fm.fmindex import FmIndex
+    from ibwa_tpu_torch.index.builder import load_index
+    fms = (FmIndex(load_index(str(fa), 0)), FmIndex(load_index(str(fa), 1)))
+    fm = build_device_pair(fms[0], fms[1], dev)
+    rows = {"stack_update": check_stack(dev), **check_occ(fm, dev)}
+    del fm
+    tables = {label: bench_chase.make_table_device(n, w, SEED, dev)
+              for label, n, w in PROBE_TABLES}
+    rows.update(check_chase(tables, dev))
+    rows["lf_walk"] = check_walk(fms, dev)
+    log(f"kernel checks done at {time.perf_counter() - t_start:.0f} s")
+
+    # ---- 4a. the probe
+    kernels.reset_launches()
+    records = run_probe(tables)
+    launches = dict(kernels.launches)
+    del tables
+    torch.cuda.empty_cache()
+    (WORK / "probe.json").write_text(json.dumps(
+        {"device": smi, "results": records}, indent=1))
+    # the latency bound of the chained kernels: a lane's fetches are
+    # dependent, so a launch takes at least (steps of its longest chain) x
+    # (one warp's marginal time per step on that table)
+    warp_us = {r["table"]: r["marginal_us_per_step"] for r in records
+               if r["variant"] == "chase" and r["lanes"] == 32}
+    longest = rows["lf_walk"].pop("_longest")
+    log(f"one-warp dependent fetch, us/step: {warp_us}; latency bounds: "
+        f"K3/K4 table c {PROBE_STEPS} steps "
+        f"{PROBE_STEPS * warp_us['c'] / 1e3:.5f} ms; K5 longest walk "
+        f"{longest} steps on the L2-resident table "
+        f"{longest * warp_us['b'] / 1e3:.5f} ms")
+
+    # ---- 4b. the walker
+    kernels.reset_launches()
+    run_walker(fms, dev)
+    launches.update(kernels.launches)
+    del fms
+    log(f"probe and walker done at {time.perf_counter() - t_start:.0f} s")
+
+    # ---- 4c. aln
+    aln_launches, hybrid_launches = run_aln_paths(fa, fq)
+    for name in ("stack_update", "occ4_pair", "occ1_pair"):
+        if hybrid_launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"hybrid path ({hybrid_launches})")
+    launches.update(aln_launches)
+    for name in rows:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} never launched on its "
+                                 f"path ({launches})")
+    log(f"launches on the paths: {launches}; all phases "
+        f"{time.perf_counter() - t_start:.0f} s")
 
     # ---- 5. result lines
-    src = {"stack_update": ("ibwa_tpu_torch/csrc/stack_update.cu",
-                            "ibwa_tpu/align/stack_kernel.py:115"),
-           "occ4_pair": ("ibwa_tpu_torch/csrc/occ.cu",
-                         "ibwa_tpu/fm/device.py:334"),
-           "occ1_pair": ("ibwa_tpu_torch/csrc/occ.cu",
-                         "ibwa_tpu/fm/device.py:430")}
-    table = [{"name": name, "route": "cuda", "source": src[name][0],
-              "replaces": src[name][1], "launches": launches[name], **r}
+    table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
+              "replaces": SOURCES[name][1], "launches": launches[name], **r}
              for name, r in rows.items()]
     print(smi)
     print(json.dumps({"kernels": table}))

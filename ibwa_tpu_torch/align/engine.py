@@ -37,15 +37,14 @@ import time
 import numpy as np
 import torch
 
-from ibwa_tpu.align import engine_ref
-from ibwa_tpu.align.engine_ref import Hit
-from ibwa_tpu.align.opts import (BWA_MODE_GAPE, BWA_MODE_LOGGAP,
-                                 BWA_MODE_NONSTOP, GapOpt, aln_score,
-                                 cal_maxdiff)
-from ibwa_tpu.fm.fmindex import FmIndex
-
+from .. import native
 from ..fm.device import DeviceFmPair, build_device_pair, occ1_pair, occ4_pair
+from ..fm.fmindex import FmIndex
 from ..u32 import MASK, int_log2, wrap_i32
+from . import engine_ref
+from .engine_ref import Hit
+from .opts import (BWA_MODE_GAPE, BWA_MODE_LOGGAP, BWA_MODE_NONSTOP, GapOpt,
+                   aln_score, cal_maxdiff)
 from .stack_kernel import stack_update
 
 STATE_M, STATE_I, STATE_D, STATE_E = 0, 1, 2, 3
@@ -752,8 +751,6 @@ def native_align_batch(fms, seqs, rseqs, opt):
     thread) — a jax-free copy of engine_jax.native_align_batch, whose
     module imports jax.  The device engine's fallback and the `native`
     engine."""
-    from ibwa_tpu import native
-
     if not seqs:
         return []
     max_len = max(len(s) for s in seqs)

@@ -3,7 +3,7 @@
 Port of `ibwa_tpu/align/pipeline.py` (bwa_aln_core, bwtaln.c:173-241):
 batches of 0x40000 reads, the gap_opt_t header, per-read hit records.
 Index loading, read parsing (FASTQ and BAM) and the .sai writer are
-`ibwa_tpu`'s own jax-free modules.
+the port's own copies of `ibwa_tpu`'s host modules.
 
 Engines:
   * "torch"  — the device search (align/engine.py) on `device`, with the
@@ -19,21 +19,20 @@ import sys
 import time
 from typing import BinaryIO
 
-from ibwa_tpu.align import engine_ref
-from ibwa_tpu.align.opts import GapOpt
-from ibwa_tpu.fm.fmindex import FmIndex
-from ibwa_tpu.index.builder import load_index
-from ibwa_tpu.io import sai
-from ibwa_tpu.io.reads import load_reads
-
+from ..fm.fmindex import FmIndex
+from ..index.builder import load_index
+from ..io import sai
+from ..io.reads import load_reads
 from . import engine as torch_engine
+from . import engine_ref
+from .opts import GapOpt
 
 BATCH_SIZE = 0x40000
 
 
 def _load(fq_path: str, opt: GapOpt):
     if opt.mode & 0x20:  # BWA_MODE_BAM (bwtaln.c:162-168)
-        from ibwa_tpu.io.bam import load_reads_bam
+        from ..io.bam import load_reads_bam
         which = 0
         if opt.mode & 0x40:
             which |= 4

@@ -1,7 +1,9 @@
-"""Command-line interface: `aln` on the torch engine, everything else
-through `ibwa_tpu.cli` (jax-free on those paths).
+"""Command-line interface of the port: `index` and `aln`.
 
 Usage: python -m ibwa_tpu_torch <command> [options]
+
+The other stages of `ibwa_tpu`'s CLI (`samse`, `sampe`, `bwasw` and the
+tools) are not ported yet: they print that to stderr and return 2.
 """
 
 from __future__ import annotations
@@ -9,7 +11,26 @@ from __future__ import annotations
 import argparse
 import sys
 
-from ibwa_tpu import cli as tpu_cli
+NOT_PORTED = ("samse", "sampe", "bwasw", "fa2pac", "pac2bwt", "pac2bwtgen",
+              "bwtupdate", "pac_rev", "bwt2sa", "pac2cspac", "stdsw",
+              "qualfa2fq", "solid2fastq", "prepare-remap")
+
+
+def cmd_index(argv: list[str]) -> int:
+    """`index` with the option surface of ibwa_tpu.cli.cmd_index."""
+    ap = argparse.ArgumentParser(prog="ibwa-tpu-torch index")
+    ap.add_argument("fasta", help="input FASTA")
+    ap.add_argument("-p", "--prefix", default=None,
+                    help="index prefix [fasta path]")
+    ap.add_argument("-c", action="store_true",
+                    help="build for color-space (SOLiD) reads")
+    ap.add_argument("-a", default="is", choices=["is", "bwtsw", "div"],
+                    help="construction algorithm (all via SA-IS; the "
+                         "BWT is unique so artifacts are identical)")
+    args = ap.parse_args(argv)
+    from .index.builder import bwa_index
+    bwa_index(args.fasta, args.prefix, color=args.c)
+    return 0
 
 
 def cmd_aln(argv: list[str]) -> int:
@@ -54,7 +75,7 @@ def cmd_aln(argv: list[str]) -> int:
                     help="torch device of the search (cuda, cuda:N, cpu)")
     args = ap.parse_args(argv)
 
-    from ibwa_tpu.align.opts import BWA_MODE_GAPE, BWA_MODE_NONSTOP, GapOpt
+    from .align.opts import BWA_MODE_GAPE, BWA_MODE_NONSTOP, GapOpt
     from .align.pipeline import aln_to_stream
     opt = GapOpt()
     if args.n is not None:
@@ -99,11 +120,25 @@ def cmd_aln(argv: list[str]) -> int:
     return 0
 
 
+COMMANDS = {"index": cmd_index, "aln": cmd_aln}
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] == "aln":
-        return cmd_aln(argv[1:])
-    return tpu_cli.main(argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print("ibwa-tpu-torch — the ibwa_tpu aligner on PyTorch + CUDA",
+              file=sys.stderr)
+        print(f"commands: {', '.join(COMMANDS)}", file=sys.stderr)
+        return 1
+    cmd = argv[0]
+    if cmd in COMMANDS:
+        return COMMANDS[cmd](argv[1:])
+    if cmd in NOT_PORTED:
+        print(f"[ibwa-tpu-torch] '{cmd}' is not ported yet (use ibwa_tpu)",
+              file=sys.stderr)
+        return 2
+    print(f"[ibwa-tpu-torch] unrecognized command '{cmd}'", file=sys.stderr)
+    return 1
 
 
 if __name__ == "__main__":

@@ -24,10 +24,9 @@ import os
 import numpy as np
 import torch
 
-from ibwa_tpu.fm.fmindex import FmIndex
-
 from .. import kernels
 from ..u32 import MASK, NEG1, partial_mask, popcount
+from .fmindex import FmIndex
 
 OCC_INTV = 128
 

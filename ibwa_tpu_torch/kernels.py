@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels (`csrc/*.cu`).
 
-The sources are compiled with nvcc at first use into one shared library
-with a plain C interface, loaded with ctypes (no PyTorch headers: that
-keeps a cold build to seconds).  The library is keyed by a hash of the
+The sources are compiled with nvcc at first use (one nvcc per source, all
+started together) and linked into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers: that keeps a cold
+build to seconds).  The library is keyed by a hash of the
 sources, so an edited kernel is rebuilt and a stale one never loads.
 Nothing is built or loaded at import time: the CPU-only test machine has
 no nvcc and never calls `lib()`.
@@ -28,7 +29,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "ibwa_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches: collections.Counter = collections.Counter()
 build_info: dict = {}
@@ -48,6 +49,14 @@ _SIGNATURES = {
     # slot0, act, cv, ofs, kv, ck, cl, cm1, cm2, key, sk, sl, sm1, sm2,
     # ovf, npush, pslot, pkey, pk, pl, pm1, pm2, B, acap, stream
     "ibwa_stack_update": [_P] * 22 + [_I, _I, _P],
+    # table, idx0, out_idx, out_acc, lanes, lanes_per_block, roww, steps,
+    # n_rows, stream
+    "ibwa_chase": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
+    # ... the same with the wave count before the stream
+    "ibwa_chase_mw": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P],
+    # blocks, primary, L2, strand, k0, add, kfin, n, seq_len, n_blk, intv,
+    # intv_mask, stream
+    "ibwa_lf_walk": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _L, _P],
 }
 
 
@@ -77,23 +86,49 @@ def _build() -> pathlib.Path:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"libibwa_kernels_{h.hexdigest()[:16]}.so"
+    key = h.hexdigest()[:16]
+    so = BUILD_DIR / f"libibwa_kernels_{key}.so"
     if so.exists():
         build_info.update(path=str(so), seconds=0.0, cached=True, log="")
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
-                           f"{r.stdout}{r.stderr}")
-    os.replace(tmp, so)
+    # one nvcc per source, all started together; then one link
+    objs, procs = [], []
+    for s in srcs:
+        if s.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{s.stem}_{key}.tmp{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(s)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    tmp = so.with_suffix(f".tmp{os.getpid()}.so")
+    log, failed = "", None
+    try:
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0 and failed is None:
+                failed = cmd
+        if failed is None:
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *[str(o) for o in objs]]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            log += r.stdout + r.stderr
+            if r.returncode != 0:
+                failed = cmd
+        if failed is not None:
+            raise RuntimeError(f"kernel build failed ({' '.join(failed)}):\n"
+                               f"{log}")
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     build_info.update(path=str(so), seconds=time.perf_counter() - t0,
-                      cached=False, log=r.stdout + r.stderr)
+                      cached=False, log=log)
     return so
 
 

@@ -1,7 +1,7 @@
 """The port's `aln` slice end to end on the CPU: `ibwa_tpu_torch aln
 --device cpu` writes a .sai byte-equal to ibwa_tpu's `aln` with the JAX
-engine, and the port's whole path runs in a process where jax cannot be
-imported."""
+engine, and the port's whole path (`index`, `aln`, the SA walker) runs in a
+process where neither jax nor the JAX package can be imported."""
 
 import os
 import random
@@ -73,22 +73,42 @@ def test_aln_sai_byte_equal_to_jax(aln_inputs, tmp_path, monkeypatch):
 
 
 def test_port_never_imports_jax(aln_inputs, tmp_path):
-    """Import the port and run its aln with `jax` blocked: any import of
-    jax (or of a JAX-package module that imports it) fails the run."""
+    """Import the port and run its `index`, its `aln` and one
+    `DeviceWalker.resolve` with `jax`, `ibwa_tpu` and `bench` blocked: any
+    import of one of them (or of a module that imports one) fails the run."""
     fa, fq, want = aln_inputs
     out = tmp_path / "nojax.sai"
+    prefix = tmp_path / "own" / "g"
+    prefix.parent.mkdir()
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
+        "BLOCKED = ('jax', 'ibwa_tpu', 'bench')\n"
+        "for m in BLOCKED:\n"
+        "    sys.modules[m] = None\n"
         "import ibwa_tpu_torch, ibwa_tpu_torch.__main__, ibwa_tpu_torch.cli\n"
         "import ibwa_tpu_torch.convert, ibwa_tpu_torch.kernels\n"
+        "import ibwa_tpu_torch.bench_chase, ibwa_tpu_torch.simulate\n"
+        "import numpy as np\n"
         "from ibwa_tpu_torch.align import engine\n"
+        "from ibwa_tpu_torch.fm.fmindex import FmIndex\n"
+        "from ibwa_tpu_torch.fm.walk import DeviceWalker\n"
+        "from ibwa_tpu_torch.index.builder import load_index\n"
         f"engine.DEV_BATCH = {LANES}\n"
         "from ibwa_tpu_torch import cli\n"
-        f"rc = cli.main(['aln', '--device', 'cpu', {str(fa)!r}, "
+        f"rc = cli.main(['index', '-p', {str(prefix)!r}, {str(fa)!r}])\n"
+        "assert rc == 0, rc\n"
+        f"rc = cli.main(['aln', '--device', 'cpu', {str(prefix)!r}, "
         f"{str(fq)!r}, '-f', {str(out)!r}])\n"
-        "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
-        "if sys.modules[m] is not None]\n"
+        f"fms = [FmIndex(load_index({str(prefix)!r}, s)) for s in (0, 1)]\n"
+        "rows = np.arange(0, fms[0].seq_len + 1, 97, dtype=np.uint32)\n"
+        "strand = (np.arange(len(rows)) % 2).astype(np.uint32)\n"
+        "got = DeviceWalker(fms[0], fms[1], 'cpu').resolve(strand, rows)\n"
+        "sa = [fms[int(s)].sa_at(int(k)) & 0xFFFFFFFF "
+        "for s, k in zip(strand, rows)]\n"
+        "assert got.tolist() == sa\n"
+        "bad = [m for m in sys.modules if sys.modules[m] is not None "
+        "and m.split('.')[0] in BLOCKED]\n"
+        "assert not bad, bad\n"
         "sys.exit(rc)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", code], env=env,

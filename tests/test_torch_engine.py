@@ -37,6 +37,12 @@ from test_engine_jax import CASES, _make_reads
 torch.set_num_threads(1)
 
 
+def _tuples(results):
+    """Per-read hit lists as plain tuples: the port's `Hit` and
+    ibwa_tpu's are two classes with the same fields."""
+    return [[dataclasses.astuple(h) for h in hits] for hits in results]
+
+
 @pytest.fixture(scope="module")
 def small_index(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("teng")
@@ -152,10 +158,10 @@ def test_engine_cases_match_ref(small_index, case, small_lanes):
     fms, seq = small_index
     opt = CASES[case]
     seqs, rseqs = _make_reads(seq)
-    ref = engine_ref.align_batch(fms, seqs, rseqs, opt)
+    ref = _tuples(engine_ref.align_batch(fms, seqs, rseqs, opt))
     eng = engine.TorchAlnEngine(fms, "cpu")
     try:
-        got = eng.align_batch(seqs, rseqs, opt)
+        got = _tuples(eng.align_batch(seqs, rseqs, opt))
     finally:
         eng.close()
     assert len(got) == len(ref)
@@ -171,11 +177,11 @@ def test_chunked_dispatch(small_index, small_lanes, monkeypatch):
     fms, seq = small_index
     opt = CASES["seeded"]
     seqs, rseqs = _make_reads(seq)
-    ref = engine_ref.align_batch(fms, seqs, rseqs, opt)
+    ref = _tuples(engine_ref.align_batch(fms, seqs, rseqs, opt))
     monkeypatch.setattr(engine, "PERSIST_N", 16)      # 40 reads -> 3 chunks
     eng = engine.TorchAlnEngine(fms, "cpu")
     try:
-        assert eng.align_batch(seqs, rseqs, opt) == ref
+        assert _tuples(eng.align_batch(seqs, rseqs, opt)) == ref
     finally:
         eng.close()
 
@@ -185,13 +191,13 @@ def test_lane_count_invariant(small_index, monkeypatch):
     fms, seq = small_index
     opt = CASES["exact"]
     seqs, rseqs = _make_reads(seq, n=150, seed=9)
-    ref = engine_ref.align_batch(fms, seqs, rseqs, opt)
+    ref = _tuples(engine_ref.align_batch(fms, seqs, rseqs, opt))
     monkeypatch.setattr(engine, "ITER_CAP", 1 << 30)
     for lanes in (64, 128):
         monkeypatch.setattr(engine, "DEV_BATCH", lanes)
         eng = engine.TorchAlnEngine(fms, "cpu")
         try:
-            assert eng.align_batch(seqs, rseqs, opt) == ref, lanes
+            assert _tuples(eng.align_batch(seqs, rseqs, opt)) == ref, lanes
         finally:
             eng.close()
 
@@ -207,10 +213,10 @@ def test_variable_lengths(small_index, small_lanes):
         seqs.append(codes[::-1].copy())
         rseqs.append((3 - codes)[::-1].copy())
     opt = GapOpt()
-    ref = engine_ref.align_batch(fms, seqs, rseqs, opt)
+    ref = _tuples(engine_ref.align_batch(fms, seqs, rseqs, opt))
     eng = engine.TorchAlnEngine(fms, "cpu")
     try:
-        assert eng.align_batch(seqs, rseqs, opt) == ref
+        assert _tuples(eng.align_batch(seqs, rseqs, opt)) == ref
     finally:
         eng.close()
 
@@ -221,12 +227,12 @@ def test_fixed_full_host_share(small_index, monkeypatch):
     fms, seq = small_index
     opt = CASES["default"]
     seqs, rseqs = _make_reads(seq)
-    ref = engine_ref.align_batch(fms, seqs, rseqs, opt)
+    ref = _tuples(engine_ref.align_batch(fms, seqs, rseqs, opt))
     monkeypatch.setenv("IBWA_HOST_FRAC", "1.0")
     eng = engine.TorchAlnEngine(fms, "cpu")
     try:
         assert eng._frac_fixed and eng.host_frac == 1.0
-        assert eng.align_batch(seqs, rseqs, opt) == ref
+        assert _tuples(eng.align_batch(seqs, rseqs, opt)) == ref
     finally:
         eng.close()
     assert eng.host_frac == 1.0
