@@ -11,42 +11,54 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      build/ibwa_tpu_torch/
   3. kernel vs plain version, bitwise, at the paths' shapes, each timed
      beside its plain version: K1 stack_update at B=1024 x ACAP 256 and
-     1024; K2 occ4_pair / occ1_pair over the aln path's block table; K3
-     chase and K4 chase_mw (W=4) on the probe's three tables; K5 lf_walk
-     on 131,072 random rows plus the edge rows, at block intervals 32, 64
-     and 128
+     1024; K2 occ4_pair / occ1_pair over the aln path's block table; the
+     search step (search_step.cu, whose stages are K2's and K1's device
+     code) on states of a real search of the smoke reads and on states at
+     every capacity edge (`engine.step_cases`), 1,024 lanes x ACAP 256
+     and 1024, 1 step and SWITCH_K steps per launch, all 30 state fields;
+     K3 chase and K4 chase_mw (W=4) on the probe's three tables; K5
+     lf_walk on 131,072 random rows plus the edge rows, at block
+     intervals 32, 64 and 128
   4. the paths, each with the launch counts set to 0 just before it and
      read just after:
      a. the dependent-gather probe (`bench_chase.probe`) on three tables
         made on the card: 500,000 x 128 words (256 MB, the TPU probe's
-        shape), 1,000,000 x 8 words (32 MB, inside the 50 MB L2) and
-        64,000,000 x 8 words (2 GB, HBM: a human-scale block table)
+        shape), 1,000,000 x 8 words (32 MB, the smoke table's shape:
+        read at random it is met in HBM, the L2 keeps ~8-16 MB of it) and
+        64,000,000 x 8 words (2 GB: a human-scale block table)
      b. the SA walker: `DeviceWalker.resolve` on 2,097,152 random
         (strand, row) pairs of the smoke index, equal to the native
         host `sa_lookup`
      c. `aln`: a 32 Mbp repeat-structured genome (indexed by the port's
         `index` and cached under .bench/smoke/), 16,384 simulated 100 bp
         reads; `ibwa_tpu_torch aln` device-only (IBWA_HOST_FRAC=0), then
-        hybrid; each .sai must be byte-identical to `--engine native`
-     Every kernel must have launched on its path.
+        hybrid; each .sai must be byte-identical to `--engine native`;
+        then the profile of one warm 2,048-read chunk (bare wall,
+        launches, device busy share, device time by kind)
+     Every kernel must have launched on its path; K1's and K2's occ4 code
+     runs there as stages of search_step, whose launches they carry.
   5. the result lines: the card, the kernel table, and the contract line
 
 `bound_ms` of the kernel table is the least time the card could take for
 the call: the larger of the bytes the call must move over 3.35 TB/s and
 its integer operations over 67 Tops/s (the card's non-tensor-core rate);
-for the data-dependent kernels it counts the rows this run fetched.
+for the data-dependent kernels it counts the rows this run fetched.  The
+chained kernels (chase, lf_walk, search_step) also get a latency bound:
+their dependent fetches times the one-warp step the probe measured.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import itertools
 import json
 import os
 import pathlib
 import random
+import re
 import subprocess
 import sys
 import time
@@ -208,6 +220,100 @@ def check_occ(fm, dev) -> dict:
                               "library_ms": None}
     kernels.reset_launches()
     return rows
+
+
+def smoke_chunk(fms, fq, dev) -> dict:
+    """The first PERSIST_N reads of the smoke corpus as the engine takes a
+    chunk: its config, the read lists, and `run_search_persistent`'s read
+    arguments on the card."""
+    from ibwa_tpu_torch.align import engine, pipeline
+    from ibwa_tpu_torch.align.opts import GapOpt
+    opt = GapOpt()
+    reads = pipeline._load(str(fq), opt)[:engine.PERSIST_N]
+    seqs, rseqs = [r.seq for r in reads], [r.rseq for r in reads]
+    cfg, lens, md = engine.batch_config(seqs, opt, fms[0].seq_len)
+    return {"cfg": cfg, "opt": opt, "seqs": seqs, "rseqs": rseqs,
+            "args": engine.pack_chunk(cfg, seqs, rseqs, lens, md,
+                                      opt.seed_len, dev)}
+
+
+def check_search_step(fm, chunk: dict) -> dict:
+    """The search-step kernel against the plain step on the card: every
+    case of `engine.step_cases` over the smoke chunk, at ACAP 256 and
+    1024, 1 step and SWITCH_K steps per launch, all 30 state fields
+    bitwise.  Timed on the mid-search state at SWITCH_K steps."""
+    import torch
+    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch.align import engine
+    args = chunk["args"]
+    fields = lambda st: [getattr(st, f) for f in engine.FIELDS]
+
+    def plain(cfg, seqs, st, n):
+        for _ in range(n):
+            st = engine._search_step(cfg, fm, seqs, st)
+        return st
+
+    row = {}
+    for acap in (256, 1024):
+        cfg0 = dataclasses.replace(chunk["cfg"], acap=acap)
+        cases = engine.step_cases(cfg0, fm, *args, n_lanes=B_LANES)
+        for name, cfg, seqs, st in cases:
+            for n in (1, engine.SWITCH_K):
+                want = plain(cfg, seqs, engine.clone_state(st), n)
+                got = engine.search_steps(cfg, fm, seqs,
+                                          engine.clone_state(st), n)
+                torch.cuda.synchronize()
+                err = max_abs_err(fields(got), fields(want))
+                if err:
+                    bad = [f for f in engine.FIELDS if max_abs_err(
+                        [getattr(got, f)], [getattr(want, f)])]
+                    raise AssertionError(
+                        f"search_step ACAP={acap} case {name} n={n}: kernel "
+                        f"!= plain step in {bad} (max abs err {err})")
+        log(f"search_step B={B_LANES} ACAP={acap}: all {len(engine.FIELDS)} "
+            f"fields bitwise equal to the plain step on "
+            f"{[c[0] for c in cases]} at 1 and {engine.SWITCH_K} steps")
+        # ---- times, on the lanes mid-search
+        name, cfg, seqs, st = cases[1]
+        reps = 20
+        ms = {}
+        for n in (1, engine.SWITCH_K):
+            pool = iter([engine.clone_state(st) for _ in range(2 * reps + 1)])
+            ms[n], _ = timed_ms(lambda: engine.search_steps(
+                cfg, fm, seqs, next(pool), n), reps)
+        pool = iter([engine.clone_state(st) for _ in range(5)])
+        plain_ms, _ = timed_ms(
+            lambda: plain(cfg, seqs, next(pool), engine.SWITCH_K), 2)
+        # what these SWITCH_K steps must move, from the counters they
+        # advanced: per lane-step two FM rows, a read base, two meta
+        # words, the freed key and the next pop's entry; five words per
+        # pushed child; per recorded hit its three words and one strand's
+        # w / bid / meta row in and out; and per launch the state once in
+        # (key rows, scalars) and out (scalars).  The E-chain's rows and
+        # bases are left out: the counters do not show how many there were.
+        after = engine.search_steps(cfg, fm, seqs, engine.clone_state(st),
+                                    engine.SWITCH_K)
+        lane_steps = int((after.lane_it - st.lane_it).sum())
+        pushes = int((after.seqc - st.seqc).sum())
+        hits = int((after.n_hits - st.n_hits).sum())
+        P = cfg.L + cfg.SL + 2
+        moved = (lane_steps * (2 * 4 * (4 + fm.wpb) + 1 + 2 * 8 + 4 + 4 * 4)
+                 + pushes * 5 * 4 + hits * (3 * 8 + 2 * 3 * P * 8)
+                 + B_LANES * (acap * 4 + 2 * 15 * 8))
+        ops = lane_steps * (2 * fm.wpb * 4 * 6 + 400 + 4 * acap)
+        b = bound(moved, ops)
+        log(f"search_step B={B_LANES} ACAP={acap} on {name}: device ms per "
+            f"launch {ms[1]:.5f} at 1 step, {ms[engine.SWITCH_K]:.5f} at "
+            f"{engine.SWITCH_K} steps ({lane_steps} lane-steps, {pushes} "
+            f"pushes, {hits} hits); {engine.SWITCH_K} plain steps "
+            f"{plain_ms:.5f}; bound {b['bound_ms']:.5f} ({b['bound_by']}, "
+            f"{moved} bytes)")
+        if acap == 256:   # the main path's arena
+            row = {"max_abs_err": 0, "ms": ms[engine.SWITCH_K],
+                   "plain_ms": plain_ms, **b, "library_ms": None,
+                   "ms_1_step": ms[1], "steps_per_launch": engine.SWITCH_K}
+    kernels.reset_launches()
+    return row
 
 
 def check_chase(tables: dict, dev) -> dict:
@@ -431,6 +537,63 @@ def run_aln(args: list[str], out: pathlib.Path) -> dict:
     return stats
 
 
+def profile_chunk(fms, fm, chunk: dict) -> None:
+    """One warm 2,048-read chunk of the device search: bare wall, then
+    under the profiler its launches and device time by kind, beside the
+    native search of the same reads."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch.align import engine
+    n = len(chunk["seqs"])
+    run = lambda: engine.run_search_persistent(
+        chunk["cfg"], fm, *chunk["args"], n_lanes=B_LANES)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, fb, steps = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    kinds = {"search_step": ("search_steps_kernel",),
+             "K2 occ": ("occ_pair_kernel",),
+             "K1 stack_update": ("stack_update_kernel",),
+             "torch index/gather/scatter": ("index", "gather", "scatter"),
+             "copies": ("memcpy", "memset")}
+    dev_us = {k: 0.0 for k in (*kinds, "torch elementwise/reduce")}
+    n_launch = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = next((k for k, pats in kinds.items()
+                     if any(pat in e.key.lower() for pat in pats)),
+                    "torch elementwise/reduce")
+        dev_us[kind] += e.self_device_time_total
+        n_launch += e.count
+    total_us = sum(dev_us.values())
+    if total_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    t0 = time.perf_counter()
+    engine.native_align_batch(fms, chunk["seqs"], chunk["rseqs"],
+                              chunk["opt"])
+    native_s = time.perf_counter() - t0
+    phases = steps // engine.SWITCH_K
+    shares = ", ".join(f"{k} {v / total_us:.4f}" for k, v in dev_us.items())
+    log(f"chunk profile ({n} reads, warm): bare wall {wall:.4f} s for "
+        f"{steps} steps in {phases} phases = {wall / steps * 1e3:.4f} "
+        f"ms/step, {n / wall:.1f} reads/s; fallback {int(fb.sum())}; under "
+        f"the profiler {n_launch} launches = {n_launch / phases:.1f} per "
+        f"phase, of them {counts}; device time {total_us / 1e6:.4f} s = "
+        f"{total_us / 1e6 / wall:.4f} of the bare wall; by kind: {shares}; "
+        f"search_step {dev_us['search_step'] / max(counts.get('search_step', 0), 1):.1f} "
+        f"us per launch; native search of the same reads {native_s:.4f} s "
+        f"({n / native_s:.0f} reads/s)")
+
+
 def run_aln_paths(fa, fq) -> tuple[dict, dict]:
     """`aln` native, device-only and hybrid; the two device .sai must be
     byte-identical to the native one.  Returns the launch counts of the
@@ -467,11 +630,14 @@ def run_aln_paths(fa, fq) -> tuple[dict, dict]:
             f"host share {r.get('host_reads', 0)}, steps "
             f"{r.get('iterations', 0)}")
     log(f".sai byte-identical to --engine native (device-only, hybrid); "
-        f"{n_hit}/{N_READS} reads with hits; launches {launches}")
+        f"{n_hit}/{N_READS} reads with hits; launches device-only "
+        f"{launches}, hybrid {hybrid_launches}")
     return launches, hybrid_launches
 
 
 SOURCES = {
+    "search_step": ("ibwa_tpu_torch/csrc/search_step.cu",
+                    "ibwa_tpu/align/engine_jax.py:243"),
     "stack_update": ("ibwa_tpu_torch/csrc/stack_update.cu",
                      "ibwa_tpu/align/stack_kernel.py:115"),
     "occ4_pair": ("ibwa_tpu_torch/csrc/occ.cu", "ibwa_tpu/fm/device.py:334"),
@@ -481,6 +647,9 @@ SOURCES = {
                  "scripts/bench_chase.py:258"),
     "lf_walk": ("ibwa_tpu_torch/csrc/lf_walk.cu", "ibwa_tpu/fm/walk.py:78"),
 }
+# kernels whose device code runs on the aln path as a stage of another
+# kernel's launch (their own entries stay, for the check and the plain step)
+WITHIN = {"stack_update": "search_step", "occ4_pair": "search_step"}
 
 
 def main() -> int:
@@ -508,9 +677,14 @@ def main() -> int:
         log(f"kernels built in {info['seconds']:.1f} s -> {info['path']}")
         host_lib.result()
     log(f"native host library ready; both builds {time.perf_counter() - t0:.1f} s")
+    entry = ""
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            found = re.search(r"\d+([a-z_]+_kernel)(?:I(\w+?)EEv)?", line)
+            entry = f"{found.group(1)}<{found.group(2) or ''}>" if found \
+                else line.split("'")[1][-40:]
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {entry}: {line.split(' : ')[-1].strip()}")
 
     # ---- 3. kernel vs plain version (K2 and K5 need the aln path's index)
     fa, fq = make_inputs()
@@ -520,8 +694,9 @@ def main() -> int:
     from ibwa_tpu_torch.index.builder import load_index
     fms = (FmIndex(load_index(str(fa), 0)), FmIndex(load_index(str(fa), 1)))
     fm = build_device_pair(fms[0], fms[1], dev)
-    rows = {"stack_update": check_stack(dev), **check_occ(fm, dev)}
-    del fm
+    chunk = smoke_chunk(fms, fq, dev)
+    rows = {"stack_update": check_stack(dev), **check_occ(fm, dev),
+            "search_step": check_search_step(fm, chunk)}
     tables = {label: bench_chase.make_table_device(n, w, SEED, dev)
               for label, n, w in PROBE_TABLES}
     rows.update(check_chase(tables, dev))
@@ -542,26 +717,38 @@ def main() -> int:
     warp_us = {r["table"]: r["marginal_us_per_step"] for r in records
                if r["variant"] == "chase" and r["lanes"] == 32}
     longest = rows["lf_walk"].pop("_longest")
+    # a search step's occ4 rows depend on the pop the step before left, and
+    # the E-chain's occ1 rows on them: 1 to E_UNROLL dependent fetches
+    from ibwa_tpu_torch.align import engine
+    step_lat = rows["search_step"]["steps_per_launch"] * warp_us["b"] / 1e3
+    rows["search_step"]["latency_bound_ms"] = step_lat
     log(f"one-warp dependent fetch, us/step: {warp_us}; latency bounds: "
         f"K3/K4 table c {PROBE_STEPS} steps "
         f"{PROBE_STEPS * warp_us['c'] / 1e3:.5f} ms; K5 longest walk "
-        f"{longest} steps on the L2-resident table "
-        f"{longest * warp_us['b'] / 1e3:.5f} ms")
+        f"{longest} steps on the smoke table's shape "
+        f"{longest * warp_us['b'] / 1e3:.5f} ms; search_step "
+        f"{engine.SWITCH_K} steps x 1 to {engine.E_UNROLL} dependent fetches "
+        f"{step_lat:.5f} to {engine.E_UNROLL * step_lat:.5f} ms")
 
     # ---- 4b. the walker
     kernels.reset_launches()
     run_walker(fms, dev)
     launches.update(kernels.launches)
-    del fms
     log(f"probe and walker done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- 4c. aln
     aln_launches, hybrid_launches = run_aln_paths(fa, fq)
-    for name in ("stack_update", "occ4_pair", "occ1_pair"):
-        if hybrid_launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"hybrid path ({hybrid_launches})")
+    for path, counts in (("device-only", aln_launches),
+                         ("hybrid", hybrid_launches)):
+        for name in ("search_step", "occ1_pair"):
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"{path} path ({counts})")
+    profile_chunk(fms, fm, chunk)
+    del fms, fm, chunk
     launches.update(aln_launches)
+    for name, host in WITHIN.items():
+        launches[name] = launches.get(host, 0)
     for name in rows:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} never launched on its "
@@ -571,7 +758,8 @@ def main() -> int:
 
     # ---- 5. result lines
     table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
-              "replaces": SOURCES[name][1], "launches": launches[name], **r}
+              "replaces": SOURCES[name][1], "launches": launches[name], **r,
+              **({"within": WITHIN[name]} if name in WITHIN else {})}
              for name, r in rows.items()]
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -20,15 +20,19 @@ Port conventions:
   * JAX's dropped scatters (`mode="drop"` at row B/N) become masked
     writes to rows that exist; gathers whose index JAX would clamp for
     finished lanes are clamped here too.
-  * The step is plain torch ops on the device plus the two kernels:
-    occ4_pair / occ1_pair (K2, fm/device.py) and stack_update (K1).
-  * The persistent loop syncs with the host once per switch phase
-    (every SWITCH_K steps), never per step.
+  * `_search_step` is the plain step: torch ops plus occ4_pair /
+    occ1_pair (K2, fm/device.py) and stack_update (K1).  `search_steps`
+    runs n of them: the plain step on CPU tensors, one launch of the
+    hand-written kernel `csrc/search_step.cu` (whose stages 3 and 7 are
+    K2's and K1's device code) on CUDA tensors.
+  * The persistent loop launches the SWITCH_K steps of a phase at once
+    and syncs with the host once per switch phase, never per step.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import dataclasses
 import functools
 import os
@@ -37,8 +41,9 @@ import time
 import numpy as np
 import torch
 
-from .. import native
-from ..fm.device import DeviceFmPair, build_device_pair, occ1_pair, occ4_pair
+from .. import kernels, native
+from ..fm.device import (DeviceFmPair, _check_cuda_table, build_device_pair,
+                         occ1_pair, occ4_pair)
 from ..fm.fmindex import FmIndex
 from ..u32 import MASK, int_log2, wrap_i32
 from . import engine_ref
@@ -459,6 +464,96 @@ def _search_step(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
         pslot=pslot, pkey=pkey, pk=pk, pl=pl, pm1=pm1, pm2=pm2)
 
 
+_STATE_DTYPES = {"has_seed": torch.bool, "done": torch.bool,
+                 "fb": torch.bool, "sk": torch.int32, "sl": torch.int32,
+                 "sm1": torch.int32, "sm2": torch.int32, "key": torch.int32}
+
+
+class _StepArgs(ctypes.Structure):
+    """The launch arguments of `ibwa_search_steps`, field for field the
+    struct IbwaStepArgs of csrc/search_step.cu: the 30 state tensors, the
+    index, the reads, then shapes, the config and the engine's constants."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in FIELDS]
+        + [(name, ctypes.c_void_p)
+           for name in ("blocks", "primary", "L2", "l2diff", "seqs")]
+        + [(name, ctypes.c_int64) for name in ("seq_len", "n_blk")]
+        + [(name, ctypes.c_int) for name in (
+            "B", "n_reads", "n_steps", "intv", "L", "SL", "acap", "hcap",
+            "s_mm", "s_gapo", "s_gape", "max_gapo", "max_gape",
+            "max_del_occ", "indel_end_skip", "max_top2", "max_entries",
+            "max_seed_diff", "iter_cap", "gape_mode", "nonstop", "loggap",
+            "max_seq", "e_unroll", "state_m", "state_i", "state_d",
+            "state_e")])
+
+
+def _launch_search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs, st,
+                         n_steps: int, stream: int) -> None:
+    """Check the tensors the kernel is given (it takes nothing else) and
+    launch `ibwa_search_steps` on them; `st` is updated in place."""
+    B = st.lens.shape[0]
+    P = cfg.L + cfg.SL + 2
+    shapes = {"sk": (B, cfg.acap), "sl": (B, cfg.acap), "sm1": (B, cfg.acap),
+              "sm2": (B, cfg.acap), "key": (B, cfg.acap), "w": (B, 2, P),
+              "bid": (B, 2, P), "meta": (B, 2, P), "hk": (B, HCAP),
+              "hl": (B, HCAP), "hm": (B, HCAP), "it": ()}
+    for name in FIELDS:
+        t = getattr(st, name)
+        want = (_STATE_DTYPES.get(name, I64), shapes.get(name, (B,)))
+        if (t.device != fm.device or (t.dtype, tuple(t.shape)) != want
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"search_steps: {name} must be a contiguous {want[0]}"
+                f"{list(want[1])} on {fm.device}, got {t.dtype}"
+                f"{list(t.shape)} on {t.device}")
+    if (seqs.device != fm.device or seqs.dtype != torch.uint8
+            or seqs.dim() != 3 or tuple(seqs.shape[1:]) != (2, cfg.L)
+            or seqs.shape[0] < 1 or not seqs.is_contiguous()):
+        raise ValueError("search_steps: seqs must be a contiguous "
+                         f"uint8[N, 2, {cfg.L}] on {fm.device}")
+    if cfg.acap % 32:
+        raise ValueError(f"search_steps: ACAP={cfg.acap} must be a multiple "
+                         "of 32 (one warp per lane row)")
+    _check_cuda_table(fm)
+    if fm.L2.dtype != I64 or not fm.L2.is_contiguous():
+        raise ValueError("L2 must be contiguous int64")
+    args = _StepArgs(
+        **{name: getattr(st, name).data_ptr() for name in FIELDS},
+        blocks=fm.blocks.data_ptr(), primary=fm.primary.data_ptr(),
+        L2=fm.L2.data_ptr(), l2diff=fm.l2diff.data_ptr(),
+        seqs=seqs.data_ptr(), seq_len=fm.seq_len, n_blk=fm.n_blk,
+        B=B, n_reads=seqs.shape[0], n_steps=n_steps, intv=fm.intv,
+        hcap=HCAP, max_seq=MAX_SEQ, e_unroll=E_UNROLL, state_m=STATE_M,
+        state_i=STATE_I, state_d=STATE_D, state_e=STATE_E,
+        **{f.name: int(getattr(cfg, f.name))
+           for f in dataclasses.fields(cfg) if f.name != "NB"})
+    rc = kernels.lib().ibwa_search_steps(ctypes.byref(args), stream)
+    kernels.check(rc, "search_step")
+    kernels.launches["search_step"] += 1
+
+
+def search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
+                 st: SearchState, n_steps: int) -> SearchState:
+    """`n_steps` search steps of every lane.
+
+    CPU tensors: `n_steps` calls of the plain `_search_step`.  CUDA
+    tensors: one launch of the kernel `csrc/search_step.cu`, which keeps a
+    lane's steps on the card and updates `st` in place; it expects what
+    every state loaded or stepped by this module holds, `st.meta ==
+    _pack_meta(st.w, st.bid)` and the pop fields of the lane's arena."""
+    dev = fm.device
+    if dev.type == "cpu":
+        for _ in range(n_steps):
+            st = _search_step(cfg, fm, seqs, st)
+        return st
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _launch_search_steps(cfg, fm, seqs, st, n_steps,
+                         torch.cuda.current_stream(dev).cuda_stream)
+    return st
+
+
 def _load_lanes(cfg: EngineConfig, st: SearchState, load, crid, lens,
                 has_seed, max_diff0, big, seq_len: int) -> None:
     """Reset the lanes in `load` to the start of read `crid` (in place):
@@ -499,24 +594,77 @@ def _load_lanes(cfg: EngineConfig, st: SearchState, load, crid, lens,
 
 def _empty_lanes(cfg: EngineConfig, B: int, dev) -> SearchState:
     """Lane state "before the first read": rid = lane - B and every lane
-    done, so the first switch phase loads read `lane` into lane `lane`."""
+    done, so the first switch phase loads read `lane` into lane `lane`.
+    An empty arena with its pop (slot 0, a free key) and zero width planes
+    with their meta, as a step would leave them."""
     P = cfg.L + cfg.SL + 2
     zb = torch.zeros(B, dtype=I64, device=dev)
     zp = lambda *s, dt=torch.int32: torch.zeros(*s, dtype=dt, device=dev)
     fb = torch.zeros(B, dtype=torch.bool, device=dev)
+    w = zp(B, 2, P, dt=I64)
     return SearchState(
         rid=torch.arange(B, device=dev) - B, lens=zb + 1, has_seed=fb,
         lane_it=zb, sk=zp(B, cfg.acap), sl=zp(B, cfg.acap),
         sm1=zp(B, cfg.acap), sm2=zp(B, cfg.acap),
         key=torch.full((B, cfg.acap), INT32_MAX, dtype=torch.int32,
                        device=dev),
-        seqc=zb + 2, stack_n=zb, w=zp(B, 2, P, dt=I64),
-        bid=zp(B, 2, P, dt=I64), meta=zp(B, 2, P, dt=I64),
+        seqc=zb + 2, stack_n=zb, w=w, bid=zp(B, 2, P, dt=I64),
+        meta=_pack_meta(w, w),
         hk=zp(B, HCAP, dt=I64), hl=zp(B, HCAP, dt=I64),
         hm=zp(B, HCAP, dt=I64), n_hits=zb, best_score=zb, best_cnt=zb,
         max_diff=zb, done=~fb, fb=fb, it=torch.zeros((), dtype=I64,
                                                      device=dev),
-        pslot=zb, pkey=zb, pk=zb, pl=zb, pm1=zb, pm2=zb)
+        pslot=zb, pkey=zb + INT32_MAX, pk=zb, pl=zb, pm1=zb, pm2=zb)
+
+
+class _Chunk:
+    """One chunk of N reads streaming through B persistent lanes: the
+    lane state, the per-read planes and the output rows (engine_jax.
+    _run_search_persistent's carry).
+
+    seqs uint8[N, 2, L], seed_seqs uint8[N, 2, SL], lens / max_diff0
+    int64[N], has_seed / bad bool[N], all on fm's device."""
+
+    def __init__(self, cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
+                 max_diff0, has_seed, seed_seqs, bad, n_lanes: int):
+        self.cfg, self.fm = cfg, fm
+        self.lens, self.max_diff0 = lens, max_diff0
+        self.has_seed, self.bad = has_seed, bad
+        self.N, self.B = lens.shape[0], n_lanes
+        dev = fm.device
+        self.big = big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs)
+        # outputs are indexed by rid mod Npad: a lane's rid stays congruent
+        # to the lane mod B, so every lane owns distinct rows, and a lane
+        # with nothing to flush rewrites its row unchanged (no dropped
+        # scatter)
+        self.npad = -(-self.N // self.B) * self.B
+        self.out_h = [torch.zeros(self.npad, HCAP, dtype=I64, device=dev)
+                      for _ in range(3)]
+        self.out_nh = torch.zeros(self.npad, dtype=I64, device=dev)
+        self.out_fb = torch.zeros(self.npad, dtype=torch.bool, device=dev)
+        self.remaining = torch.tensor(self.N, dtype=I64, device=dev)
+        self.st = _empty_lanes(cfg, self.B, dev)
+
+    def switch(self) -> None:
+        """The switch phase: flush the finished lanes' hits to their
+        reads' output rows and load their next read (or park them)."""
+        st, N = self.st, self.N
+        fin = st.done | st.fb
+        valid = (st.rid >= 0) & (st.rid < N) & fin
+        orow = torch.remainder(st.rid, self.npad)
+        for out, src in zip(self.out_h, (st.hm, st.hk, st.hl)):
+            out[orow] = torch.where(valid[:, None], src, out[orow])
+        self.out_nh[orow] = torch.where(valid, st.n_hits, self.out_nh[orow])
+        self.out_fb[orow] = torch.where(valid, st.fb, self.out_fb[orow])
+        self.remaining = self.remaining - valid.sum()
+        st.rid = torch.where(fin, st.rid + self.B, st.rid)
+        load = fin & (st.rid < N)
+        park = fin & (st.rid >= N)
+        crid = torch.clamp(st.rid, 0, N - 1)
+        _load_lanes(self.cfg, st, load, crid, self.lens, self.has_seed,
+                    self.max_diff0, self.big, self.fm.seq_len)
+        st.done = torch.where(fin, park | (load & self.bad[crid]), st.done)
+        st.fb = torch.where(fin, False, st.fb)
 
 
 def run_search_persistent(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
@@ -525,54 +673,119 @@ def run_search_persistent(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
     """Persistent-lane scheduler (engine_jax._run_search_persistent):
     n_lanes lanes stream through the N reads of a chunk, lane b taking
     reads b, b + B, ...; every SWITCH_K steps a switch phase flushes the
-    finished lanes' hits and loads their next read.
-
-    seqs uint8[N, 2, L], seed_seqs uint8[N, 2, SL], lens / max_diff0
-    int64[N], has_seed / bad bool[N], all on fm's device.  Returns
-    (hits int64[N, HCAP, 3] as (meta, k, l), n_hits int64[N],
+    finished lanes' hits and loads their next read.  Inputs as `_Chunk`.
+    Returns (hits int64[N, HCAP, 3] as (meta, k, l), n_hits int64[N],
     fb bool[N], steps)."""
-    N = lens.shape[0]
-    B = n_lanes
-    dev = fm.device
-    big = big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs)
-    # outputs are indexed by rid mod Npad: a lane's rid stays congruent
-    # to the lane mod B, so every lane owns distinct rows, and a lane with
-    # nothing to flush rewrites its row unchanged (no dropped scatter)
-    npad = -(-N // B) * B
-    out_h = [torch.zeros(npad, HCAP, dtype=I64, device=dev)
-             for _ in range(3)]
-    out_nh = torch.zeros(npad, dtype=I64, device=dev)
-    out_fb = torch.zeros(npad, dtype=torch.bool, device=dev)
-    remaining = torch.tensor(N, dtype=I64, device=dev)
-    st = _empty_lanes(cfg, B, dev)
-
+    ch = _Chunk(cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs, bad,
+                n_lanes)
     while True:
-        # ---- switch phase
-        fin = st.done | st.fb
-        valid = (st.rid >= 0) & (st.rid < N) & fin
-        orow = torch.remainder(st.rid, npad)
-        for out, src in zip(out_h, (st.hm, st.hk, st.hl)):
-            out[orow] = torch.where(valid[:, None], src, out[orow])
-        out_nh[orow] = torch.where(valid, st.n_hits, out_nh[orow])
-        out_fb[orow] = torch.where(valid, st.fb, out_fb[orow])
-        remaining = remaining - valid.sum()
-        st.rid = torch.where(fin, st.rid + B, st.rid)
-        load = fin & (st.rid < N)
-        park = fin & (st.rid >= N)
-        crid = torch.clamp(st.rid, 0, N - 1)
-        _load_lanes(cfg, st, load, crid, lens, has_seed, max_diff0, big,
-                    fm.seq_len)
-        st.done = torch.where(fin, park | (load & bad[crid]), st.done)
-        st.fb = torch.where(fin, False, st.fb)
-        # ---- SWITCH_K search steps
-        for _ in range(SWITCH_K):
-            st = _search_step(cfg, fm, seqs, st)
-        left, steps = torch.stack([remaining, st.it]).tolist()  # one sync
+        ch.switch()
+        ch.st = search_steps(cfg, fm, seqs, ch.st, SWITCH_K)
+        left, steps = torch.stack([ch.remaining, ch.st.it]).tolist()  # sync
         if left <= 0 or steps >= MAX_ITERS * 8:
             break
-    out_fb = out_fb | (remaining > 0)   # iteration bound hit: all fall back
-    hits = torch.stack(out_h, dim=-1)[:N]
-    return hits, out_nh[:N], out_fb[:N], int(steps)
+    N = ch.N
+    out_fb = ch.out_fb | (ch.remaining > 0)  # iteration bound: all fall back
+    hits = torch.stack(ch.out_h, dim=-1)[:N]
+    return hits, ch.out_nh[:N], out_fb[:N], int(steps)
+
+
+def clone_state(st: SearchState) -> SearchState:
+    """A copy that shares no tensor with `st` (a CUDA step updates its
+    state in place, and the plain step the hit planes)."""
+    return SearchState(**{name: getattr(st, name).clone()
+                          for name in FIELDS})
+
+
+def step_cases(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, max_diff0,
+               has_seed, seed_seqs, bad, n_lanes: int,
+               phases: tuple[int, ...] = (0, 2, 5)
+               ) -> list[tuple[str, EngineConfig, torch.Tensor, SearchState]]:
+    """States to hold `search_steps` against the plain step on: (name,
+    config, seqs, state) from one run of the persistent search with the
+    plain step over the chunk (inputs as `_Chunk`).
+
+    `phase<p>`: the lanes as switch phase p left them, before its
+    SWITCH_K steps (phase 0: every lane at the root of its first read;
+    later ones: lanes mid-search, finished, reloaded and parked).  From
+    the last of them, states a search reaches too rarely to wait for, or
+    never, each a few steps away from an edge of the step:
+      `hovf`: the hit planes full, so the next hit goes to the host;
+      `seq_ovf`: the push counter three short of the seqno field;
+      `arena`: three free arena slots left (the rest hold entries of the
+      worst key, never popped before the real ones);
+      `dup`: every lane's popped entry turned into a gapped hit of an
+      interval its hit planes already hold;
+      `n_bases`: the width planes zeroed (no D(i) pruning) and every
+      third base of the reads an N, so exact-extension chains run into
+      bases that are no base;
+      `iter_cap`: a config whose step budget ends inside the phase."""
+    ch = _Chunk(cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs, bad,
+                n_lanes)
+    cases = []
+    for p in range(max(phases) + 1):
+        ch.switch()
+        if p in phases:
+            cases.append((f"phase{p}", cfg, seqs, clone_state(ch.st)))
+        for _ in range(SWITCH_K):
+            ch.st = _search_step(cfg, fm, seqs, ch.st)
+    base = cases[-1][3]
+    rows = torch.arange(n_lanes, device=fm.device)
+
+    hovf = clone_state(base)
+    hovf.n_hits = torch.full_like(base.n_hits, HCAP)
+    seq_ovf = clone_state(base)
+    seq_ovf.seqc = torch.full_like(base.seqc, MAX_SEQ - 3)
+
+    arena = clone_state(base)
+    free = arena.key == INT32_MAX
+    fill = (free & (torch.cumsum(free.to(I64), dim=1) > 3)
+            & ~free.all(dim=1, keepdim=True))   # an empty arena stays so
+    arena.key = torch.where(fill, INT32_MAX - 1, arena.key)
+    arena.stack_n = arena.stack_n + fill.sum(dim=1)
+
+    dup = clone_state(base)   # the pop and its arena slot: i = 0, gapo = 1
+    dup.pm1 = base.pm1 & ~(0x1FFF << 3)
+    dup.pm2 = torch.full_like(base.pm2, 1 << 8)
+    dup.sm1[rows, dup.pslot] = wrap_i32(dup.pm1).to(torch.int32)
+    dup.sm2[rows, dup.pslot] = dup.pm2.to(torch.int32)
+    dup.hk[:, 0], dup.hl[:, 0] = dup.pk, dup.pl
+    dup.n_hits = torch.clamp(base.n_hits, min=1)
+
+    n_bases = clone_state(base)
+    n_bases.w = torch.zeros_like(base.w)
+    n_bases.bid = torch.zeros_like(base.bid)
+    n_bases.meta = _pack_meta(n_bases.w, n_bases.bid)
+    seqs_n = seqs.clone()
+    seqs_n[:, :, 1::3] = 4
+
+    capped = dataclasses.replace(cfg, iter_cap=int(base.lane_it.max()) + 3)
+    return cases + [
+        ("hovf", cfg, seqs, hovf), ("seq_ovf", cfg, seqs, seq_ovf),
+        ("arena", cfg, seqs, arena), ("dup", cfg, seqs, dup),
+        ("n_bases", cfg, seqs_n, n_bases),
+        ("iter_cap", capped, seqs, clone_state(base))]
+
+
+def batch_config(seqs: list[np.ndarray], opt: GapOpt, seq_len: int):
+    """The search parameters of a read batch and its per-read lengths and
+    diff budgets (int64[n]): bwa_cal_sa_reg_gap's preamble
+    (bwtaln.c:80-100)."""
+    lens = np.array([len(s) for s in seqs], dtype=np.int64)
+    batch_opt = dataclasses.replace(opt)
+    if opt.fnr > 0.0:
+        batch_opt.max_diff = cal_maxdiff(int(lens.max()), thres=opt.fnr)
+        md_by_len = {int(n): cal_maxdiff(int(n), thres=opt.fnr)
+                     for n in np.unique(lens)}
+        max_diff = np.array([md_by_len[int(n)] for n in lens],
+                            dtype=np.int64)
+    else:
+        max_diff = np.full(len(seqs), batch_opt.max_diff, dtype=np.int64)
+    if batch_opt.max_diff < batch_opt.max_gapo:
+        batch_opt.max_gapo = batch_opt.max_diff
+    L = int(max(8, (int(lens.max()) + 7) // 8 * 8))
+    cfg = make_config(L, int(max_diff.max()), batch_opt, seq_len=seq_len)
+    return cfg, lens, max_diff
 
 
 class TorchAlnEngine:
@@ -603,24 +816,8 @@ class TorchAlnEngine:
         if not seqs:
             return []
         n_reads = len(seqs)
-        max_len = max(len(s) for s in seqs)
-        batch_opt = dataclasses.replace(opt)
-        if opt.fnr > 0.0:
-            batch_opt.max_diff = cal_maxdiff(max_len, thres=opt.fnr)
-        if batch_opt.max_diff < batch_opt.max_gapo:
-            batch_opt.max_gapo = batch_opt.max_diff
-        lens = np.array([len(s) for s in seqs], dtype=np.int64)
-        if opt.fnr > 0.0:
-            md_by_len = {int(n): cal_maxdiff(int(n), thres=opt.fnr)
-                         for n in np.unique(lens)}
-            max_diff = np.array([md_by_len[int(n)] for n in lens],
-                                dtype=np.int64)
-        else:
-            max_diff = np.full(n_reads, batch_opt.max_diff, dtype=np.int64)
-        L = int(max(8, (max_len + 7) // 8 * 8))
-        cfg = make_config(L, int(max_diff.max()), batch_opt,
-                          seq_len=self.dfm.seq_len)
-        SL = cfg.SL
+        cfg, lens, max_diff = batch_config(seqs, opt, self.dfm.seq_len)
+        L, SL = cfg.L, cfg.SL
         out: list[list[Hit] | None] = [None] * n_reads
 
         # ---- hybrid: a share of the batch goes straight to the native
@@ -724,6 +921,17 @@ def _pack_reads(seqs, rseqs, lens, max_diff, L: int, SL: int,
     nN = (np.add.reduceat((cat > 3).astype(np.int64), starts)
           if n else np.zeros(0, np.int64))
     return sq, ssq, hs, nN > max_diff
+
+
+def pack_chunk(cfg: EngineConfig, seqs, rseqs, lens, max_diff,
+               seed_len: int, device) -> tuple:
+    """The read arguments of `run_search_persistent` / `step_cases` for
+    one chunk, on `device`: (seqs, lens, max_diff0, has_seed, seed_seqs,
+    bad)."""
+    sq, ssq, hs, bad = _pack_reads(seqs, rseqs, lens, max_diff, cfg.L,
+                                   cfg.SL, seed_len)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (sq, lens, max_diff, hs, ssq, bad))
 
 
 def _decode(harr, nh, fb, opt: GapOpt, out, lo: int) -> None:

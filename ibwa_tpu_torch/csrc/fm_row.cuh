@@ -1,5 +1,8 @@
 // Row load and masked 2-bit popcount over one row of the device FM block
-// table, shared by the occ queries (occ.cu) and the LF walker (lf_walk.cu).
+// table, shared by the occ queries (occ.cu), the LF walker (lf_walk.cu) and
+// the search step (search_step.cu); and the occ query itself (locate the
+// row of a bound, fetch it, count a base with the sentinel / clamp / NEG1 /
+// seq_len edges of bwt_occ), shared by occ.cu and search_step.cu.
 //
 // A row is uint32[4 + WPB]: 4 occ checkpoint words, then the 2-bit packed
 // BWT text of the intv = 16 * WPB bases after the checkpoint.
@@ -61,6 +64,49 @@ __device__ __forceinline__ uint32_t count_base(const uint32_t (&r)[4 + WPB],
       cnt += __popc(t & pm);
   }
   return cnt;
+}
+
+constexpr uint32_t kNeg1 = 0xFFFFFFFFu;
+
+// The row that answers occ(k) on one strand, and how to read it.
+template <int WPB>
+struct OccRow {
+  uint32_t r[4 + WPB];
+  uint32_t off;  // k's offset inside the row's block
+  bool neg;      // k == (bwtint_t)(-1): every count is 0
+  bool full;     // k == seq_len: every count is L2[c + 1] - L2[c]
+};
+
+// Locate and fetch the row of bound k on `strand` (rows of strand 1 follow
+// the n_blk rows of strand 0): skip the sentinel row at `prim`, clamp to the
+// last base and the last block.  The load starts here and is not waited for,
+// so a caller that fetches the two bounds of an interval before it counts
+// either has both loads in flight.
+template <int WPB>
+__device__ __forceinline__ void fetch_occ_row(
+    const uint32_t* __restrict__ blocks, uint32_t k, uint32_t prim,
+    uint32_t seq_len, uint32_t n_blk, uint32_t strand, OccRow<WPB>& o) {
+  constexpr int shift = WPB == 2 ? 5 : WPB == 4 ? 6 : 7;  // log2(intv)
+  uint32_t kk = k - (k >= prim ? 1u : 0u);
+  kk = min(kk, seq_len > 0 ? seq_len - 1u : 0u);
+  const uint32_t blk = min(kk >> shift, n_blk - 1u);
+  o.off = kk & ((1u << shift) - 1u);
+  o.neg = k == kNeg1;
+  o.full = k == seq_len;
+  load_row<4 + WPB>(blocks + ((uint64_t)strand * n_blk + blk) * (4 + WPB),
+                    o.r);
+}
+
+// occ(k, c) from k's fetched row; l2d[c] = L2[c + 1] - L2[c].  c >= 4 (no
+// base) counts 0 at k == seq_len.
+template <int WPB>
+__device__ __forceinline__ uint32_t occ_count(const OccRow<WPB>& o,
+                                              uint32_t c,
+                                              const uint32_t (&l2d)[4]) {
+  uint32_t v = count_base<WPB>(o.r, c, o.off);
+  if (o.neg) v = 0;
+  if (o.full) v = pick4(l2d, c);
+  return v;
 }
 
 }  // namespace ibwa_fm

@@ -13,18 +13,20 @@
 // row load whose address depends on the query, then does ~10 integer ops
 // per word; the arithmetic is negligible and the time is the latency of
 // scattered loads.  At intv 64 a row is 32 B per 64 bases, 1 B/base for
-// both strands: a chr20-scale genome (32 Mbp, a ~32 MB table) sits in the
-// 50 MB L2; a human-scale table (~3 GB) does not, and every query is an
-// HBM round trip.
+// both strands; a randomly read table above ~8-16 MB is met in HBM, not in
+// the L2 (the chase probe), so every query is an HBM round trip already on
+// a chr20-scale genome.
 //
 // Design: one thread per (query, bound).  The two bounds of one SA interval
 // (k-1 and l, the pair every caller asks for) sit in neighbouring threads,
 // so a warp covers 16 intervals with 32 independent loads in flight.  The
-// row is read with 16-byte vector loads (8-byte at intv 32, whose 24 B rows
-// are only 8-byte aligned) through the read-only path, the counts are
-// __popc over the masked match words, and the sentinel adjust, the clamp
-// and the NEG1 / seq_len edge cases are done in registers.  Many warps per
-// SM keep enough loads in flight to hide the latency.
+// query itself (sentinel adjust, clamp, the NEG1 / seq_len edges, 16-byte
+// vector row loads, __popc over the masked match words) is the __device__
+// code of fm_row.cuh, which the search step (search_step.cu, whose stage 3
+// is this kernel's work inside a lane's step) calls too.  Many warps per SM
+// keep enough loads in flight to hide the latency.  On the aln path these
+// entries serve the width pass; the step's occ queries run inside
+// search_step.cu.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,26 +36,6 @@
 namespace {
 
 using namespace ibwa_fm;
-
-constexpr uint32_t kNeg1 = 0xFFFFFFFFu;
-
-// Row of query k on `strand`, and k's offset inside the row's block.
-struct Where {
-  uint64_t row;
-  uint32_t off;
-};
-
-__device__ __forceinline__ Where locate(uint32_t k, uint32_t prim,
-                                        uint32_t seq_len, uint32_t n_blk,
-                                        int shift, uint32_t strand) {
-  uint32_t kk = k - (k >= prim ? 1u : 0u);  // skip the sentinel row
-  kk = min(kk, seq_len > 0 ? seq_len - 1u : 0u);
-  uint32_t blk = min(kk >> shift, n_blk - 1u);
-  Where w;
-  w.row = (uint64_t)strand * n_blk + blk;
-  w.off = kk & ((1u << shift) - 1u);
-  return w;
-}
 
 // One thread per (query q, bound b): b = 0 asks occ at k[q] - 1 (u32 wrap,
 // so k == 0 gives NEG1), b = 1 at l[q].  C4 = true writes all four counts
@@ -67,33 +49,23 @@ __global__ void occ_pair_kernel(const uint32_t* __restrict__ blocks,
                                 const int64_t* __restrict__ lq,
                                 const int64_t* __restrict__ cq,
                                 int64_t* __restrict__ out, int m,
-                                uint32_t seq_len, uint32_t n_blk, int shift) {
-  constexpr int ROWW = 4 + WPB;
+                                uint32_t seq_len, uint32_t n_blk) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= 2 * (int64_t)m) return;
   const int64_t q = t >> 1;
   const int b = (int)(t & 1);
   const uint32_t k = b ? (uint32_t)lq[q] : (uint32_t)kq[q] - 1u;
   const uint32_t s = (uint32_t)strand[q];
-  const Where w = locate(k, (uint32_t)primary[s], seq_len, n_blk, shift, s);
-  uint32_t r[ROWW];
-  load_row<ROWW>(blocks + w.row * ROWW, r);
-  const bool neg = k == kNeg1;
-  const bool full = k == seq_len;
+  OccRow<WPB> row;
+  fetch_occ_row<WPB>(blocks, k, (uint32_t)primary[s], seq_len, n_blk, s, row);
+  const uint32_t l2d[4] = {(uint32_t)l2diff[0], (uint32_t)l2diff[1],
+                           (uint32_t)l2diff[2], (uint32_t)l2diff[3]};
   if (C4) {
 #pragma unroll
-    for (uint32_t c = 0; c < 4; ++c) {
-      uint32_t v = count_base<WPB>(r, c, w.off);
-      if (neg) v = 0;
-      if (full) v = (uint32_t)l2diff[c];
-      out[t * 4 + c] = (int64_t)v;
-    }
+    for (uint32_t c = 0; c < 4; ++c)
+      out[t * 4 + c] = (int64_t)occ_count<WPB>(row, c, l2d);
   } else {
-    const uint32_t c = (uint32_t)cq[q];
-    uint32_t v = count_base<WPB>(r, c, w.off);
-    if (neg) v = 0;
-    if (full) v = c < 4 ? (uint32_t)l2diff[c] : 0u;
-    out[t] = (int64_t)v;
+    out[t] = (int64_t)occ_count<WPB>(row, (uint32_t)cq[q], l2d);
   }
 }
 
@@ -118,15 +90,15 @@ int launch(const void* blocks, const void* primary, const void* l2diff,
   switch (intv) {
     case 32:
       occ_pair_kernel<2, C4><<<grid, threads, 0, st>>>(
-          bl, pr, ld, sp, kp, lp, cp, op, m, sl, nb, 5);
+          bl, pr, ld, sp, kp, lp, cp, op, m, sl, nb);
       break;
     case 64:
       occ_pair_kernel<4, C4><<<grid, threads, 0, st>>>(
-          bl, pr, ld, sp, kp, lp, cp, op, m, sl, nb, 6);
+          bl, pr, ld, sp, kp, lp, cp, op, m, sl, nb);
       break;
     case 128:
       occ_pair_kernel<8, C4><<<grid, threads, 0, st>>>(
-          bl, pr, ld, sp, kp, lp, cp, op, m, sl, nb, 7);
+          bl, pr, ld, sp, kp, lp, cp, op, m, sl, nb);
       break;
     default:
       return (int)cudaErrorInvalidValue;

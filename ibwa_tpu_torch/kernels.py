@@ -57,6 +57,8 @@ _SIGNATURES = {
     # blocks, primary, L2, strand, k0, add, kfin, n, seq_len, n_blk, intv,
     # intv_mask, stream
     "ibwa_lf_walk": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _L, _P],
+    # the argument struct (align/engine.py::_StepArgs), stream
+    "ibwa_search_steps": [_P, _P],
 }
 
 

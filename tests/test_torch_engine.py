@@ -5,6 +5,10 @@ host emulator (engine_ref, the semantic oracle), on the CPU.
 * step-level parity: from one JAX `_init_state`, 32 JAX `_search_step`s
   (with `stack_update_xla`) and 32 port steps leave every one of the 30
   state planes equal after every step — the test that finds a broken step;
+  `search_steps(..., n)` equals them at n = 16 and 32;
+* `step_cases`, the states the search-step kernel is held against on the
+  card: between them they reach every branch the kernel has to get right,
+  and `search_steps` equals n plain steps on each;
 * the 5 engine cases of test_engine_jax equal engine_ref hit for hit;
 * chunked dispatch, variable read lengths, lane-count invariance and the
   fixed full host share.
@@ -143,14 +147,149 @@ def test_step_parity_32_steps(small_index, case):
         jnp.asarray(bad))
     tst = convert.state_from_jax_tuple(jst)
     _assert_state_equal(tst, jst, 0)
+    tst0 = engine.clone_state(tst)
     jstep = jax.jit(engine_jax._search_step, static_argnums=0)
     tsq = torch.from_numpy(sq)
     for k in range(1, 33):
         jst = jstep(jcfg, jfm, jsq, jst)
         tst = engine._search_step(tcfg, tfm, tsq, tst)
         _assert_state_equal(tst, jst, k)
+        if k in (16, 32):   # the n-step entry, from the first state
+            tn = engine.search_steps(tcfg, tfm, tsq,
+                                     engine.clone_state(tst0), k)
+            _assert_state_equal(tn, jst, k)
     # the steps reached hit bookkeeping and the gap_shadow refresh
     assert int(tst.n_hits.sum()) > 0
+
+
+BRANCHES = {"hit_direct", "hit_e", "dup", "hovf", "gap_shadow", "arena",
+            "seq_ovf", "iter_cap", "e_stops_at_n"}
+
+
+def _branches(cfg, seqs, st0, st1) -> set:
+    """The branches of the step that some lane took between `st0` and its
+    successor `st1`, read from the entry each lane popped and from what
+    the step changed."""
+    m1, m2 = st0.pm1, st0.pm2
+    is_e = (m1 & 3) == engine.STATE_E
+    e_a, e_i = (m1 >> 2) & 1, (m1 >> 3) & 0x1FFF
+    e_gapo = (m2 >> 8) & 0xFF
+    spent = (m2 & 0xFF) + e_gapo + (((m2 >> 16) & 0xFF) if cfg.gape_mode
+                                    else 0)
+    stepped = st1.lane_it > st0.lane_it          # got past the gating
+    capped = stepped & (st1.lane_it > cfg.iter_cap)
+    brk = (st0.pkey >> 20) > st0.best_score + cfg.s_mm
+    ran = stepped & ~capped & ~(brk & (not cfg.nonstop))
+    new_fb = st1.fb & ~st0.fb
+    added = st1.n_hits > st0.n_hits
+    seen = torch.arange(engine.HCAP)[None, :] < st0.n_hits[:, None]
+    dup = ((st0.hk == st0.pk[:, None]) & (st0.hl == st0.pl[:, None])
+           & seen).any(dim=1)
+    hit = ran & (e_i == 0) & (is_e | (st0.max_diff - spent >= 0))
+    full = st0.n_hits >= engine.HCAP
+    near_seq = st0.seqc + 10 >= engine.MAX_SEQ
+    crid = torch.clamp(st0.rid, 0, seqs.shape[0] - 1)
+    base = seqs[crid, e_a, torch.clamp(e_i - 1, 0, cfg.L - 1)]
+    found = {
+        "hit_direct": ran & added & ~is_e,
+        "hit_e": ran & added & is_e,
+        "dup": (hit & ~added & dup & (e_gapo > 0) & ~full
+                & ~(st1.done & ~st0.done)),
+        "hovf": hit & new_fb & full,
+        "gap_shadow": added & (st1.w > st0.w).any(dim=2).any(dim=1),
+        "arena": (ran & new_fb & ~full & ~near_seq
+                  & ((st1.key == engine.INT32_MAX).sum(dim=1) == 0)),
+        "seq_ovf": ran & new_fb & near_seq,
+        "iter_cap": capped,
+        "e_stops_at_n": ran & is_e & (e_i > 0) & (base >= 4),
+    }
+    return {name for name, lanes in found.items() if bool(lanes.any())}
+
+
+@pytest.fixture(scope="module")
+def step_case_sets(small_index):
+    """`engine.step_cases` on the small index: defaults and the gappy
+    options, ACAP 256 and 1024, a third of the reads with an N."""
+    fms, seq = small_index
+    tfm = tdev.build_device_pair(fms[0], fms[1], "cpu")
+    seqs, rseqs = _make_reads(seq, n=96, read_len=24, seed=5)
+    for i in range(0, len(seqs), 3):
+        seqs[i][i % 24] = rseqs[i][i % 24] = 4
+    sets = {}
+    for case in ("default", "gappy"):
+        _, tcfg, arrs = _batch(fms, seqs, rseqs, CASES[case])
+        args = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrs)
+        for acap in (256, 1024):
+            cfg = dataclasses.replace(tcfg, acap=acap)
+            sets[case, acap] = engine.step_cases(cfg, tfm, *args, n_lanes=32)
+    return tfm, sets
+
+
+def test_step_cases_reach_every_branch(step_case_sets):
+    tfm, sets = step_case_sets
+    reached = set()
+    for cases in sets.values():
+        assert [c[0] for c in cases] == [
+            "phase0", "phase2", "phase5", "hovf", "seq_ovf", "arena", "dup",
+            "n_bases", "iter_cap"]
+        for _, cfg, seqs, st in cases:
+            st = engine.clone_state(st)
+            for _ in range(engine.SWITCH_K):
+                nxt = engine._search_step(cfg, tfm, seqs,
+                                          engine.clone_state(st))
+                reached |= _branches(cfg, seqs, st, nxt)
+                st = nxt
+    assert reached == BRANCHES, BRANCHES - reached
+
+
+@pytest.mark.parametrize("acap", [256, 1024])
+@pytest.mark.parametrize("case", ["default", "gappy"])
+def test_search_steps_equal_plain_steps(step_case_sets, case, acap):
+    """On the CPU `search_steps(..., n)` is n plain steps, for every case
+    the kernel is held against on the card; the state it is given is
+    what a step leaves (`meta` packed from `w` / `bid`), which is all the
+    kernel relies on."""
+    tfm, sets = step_case_sets
+    for name, cfg, seqs, st in sets[case, acap]:
+        np.testing.assert_array_equal(
+            st.meta.numpy(), engine._pack_meta(st.w, st.bid).numpy(), name)
+        for n in (1, engine.SWITCH_K):
+            want = engine.clone_state(st)
+            for _ in range(n):
+                want = engine._search_step(cfg, tfm, seqs, want)
+            got = engine.search_steps(cfg, tfm, seqs,
+                                      engine.clone_state(st), n)
+            for f in engine.FIELDS:
+                assert torch.equal(getattr(got, f), getattr(want, f)), \
+                    (name, n, f)
+            assert int(got.it) == int(st.it) + n
+
+
+def test_search_steps_rejects_other_devices(step_case_sets):
+    """Only CPU tensors take the plain step; a tensor on any device but a
+    CUDA card raises."""
+    tfm, sets = step_case_sets
+    _, cfg, seqs, st = sets["default", 256][0]
+    meta_fm = dataclasses.replace(tfm, blocks=tfm.blocks.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        engine.search_steps(cfg, meta_fm, seqs, st, 1)
+
+
+def test_empty_lanes_are_a_step_fixed_point(small_index):
+    """The lanes before the first read hold what a step would leave (the
+    pop of an empty arena, the meta of zero planes), so a step, and the
+    kernel that skips idle lanes, changes nothing but `it`."""
+    fms, seq = small_index
+    tfm = tdev.build_device_pair(fms[0], fms[1], "cpu")
+    seqs, rseqs = _make_reads(seq, n=8, read_len=24, seed=5)
+    _, tcfg, arrs = _batch(fms, seqs, rseqs, CASES["default"])
+    st = engine._empty_lanes(tcfg, 8, "cpu")
+    nxt = engine._search_step(tcfg, tfm, torch.from_numpy(arrs[0]),
+                              engine.clone_state(st))
+    for f in engine.FIELDS:
+        if f != "it":
+            assert torch.equal(getattr(nxt, f), getattr(st, f)), f
+    assert int(nxt.it) == 1
 
 
 @pytest.mark.parametrize("case", list(CASES))
