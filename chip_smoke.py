@@ -11,14 +11,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      build/ibwa_tpu_torch/
   3. kernel vs plain version, bitwise, at the paths' shapes, each timed
      beside its plain version: K1 stack_update at B=1024 x ACAP 256 and
-     1024; K2 occ4_pair / occ1_pair over the aln path's block table; the
-     search step (search_step.cu, whose stages are K2's and K1's device
-     code) on states of a real search of the smoke reads and on states at
-     every capacity edge (`engine.step_cases`), 1,024 lanes x ACAP 256
-     and 1024, 1 step and SWITCH_K steps per launch, all 30 state fields;
-     K3 chase and K4 chase_mw (W=4) on the probe's three tables; K5
-     lf_walk on 131,072 random rows plus the edge rows, at block
-     intervals 32, 64 and 128
+     1024; K2 occ4_pair / occ1_pair over the aln path's block table; K6
+     width_pass on the smoke chunk (2,048 reads: w / bid / meta planes);
+     the search step (search_step.cu, whose stages are K2's and K1's
+     device code) on states of a real search of the smoke reads and on
+     states at every capacity edge (`engine.step_cases`), 1,024 lanes x
+     ACAP 256 and 1024, 1 step and SWITCH_K steps per launch, all 30 state
+     fields; K7 lane_switch on every chunk of `engine.switch_cases` (first
+     load, mid-search, parking, the last flush, bad reads, no lane or every
+     lane finished, fewer reads than lanes), 1,024 lanes x ACAP 256 and
+     1024, all 30 state fields, the 5 output arrays and the count of reads
+     left; K3 chase and K4 chase_mw (W=4) on the probe's three tables; K5
+     lf_walk on 131,072 random rows plus the edge rows, at block intervals
+     32, 64 and 128
   4. the paths, each with the launch counts set to 0 just before it and
      read just after:
      a. the dependent-gather probe (`bench_chase.probe`) on three tables
@@ -36,15 +41,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         then the profile of one warm 2,048-read chunk (bare wall,
         launches, device busy share, device time by kind)
      Every kernel must have launched on its path; K1's and K2's occ4 code
-     runs there as stages of search_step, whose launches they carry.
+     runs there as stages of search_step and K2's occ1 code as a stage of
+     width_pass, whose launches they carry.
   5. the result lines: the card, the kernel table, and the contract line
 
 `bound_ms` of the kernel table is the least time the card could take for
 the call: the larger of the bytes the call must move over 3.35 TB/s and
 its integer operations over 67 Tops/s (the card's non-tensor-core rate);
 for the data-dependent kernels it counts the rows this run fetched.  The
-chained kernels (chase, lf_walk, search_step) also get a latency bound:
-their dependent fetches times the one-warp step the probe measured.
+chained kernels (chase, lf_walk, search_step, width_pass) also get a
+latency bound: their dependent fetches times the one-warp step the probe
+measured.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import dataclasses
 import io
 import itertools
 import json
+import math
 import os
 import pathlib
 import random
@@ -83,11 +91,31 @@ def log(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
 
 
+def device_us(prof, reps: int) -> dict:
+    """{kernel name: (device us, launches)} per call, from a profiler
+    trace of `reps` equal calls.
+
+    A trace can miss a few of its first launches (late in a long process
+    more often; neither a pause nor a throwaway launch at its start
+    prevents it), so a name's time is (mean time of the launches seen) x
+    (launches per call, rounded up), not its total / reps."""
+    import torch
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0:
+            per_call = math.ceil(e.count / reps - 1e-9)
+            out[e.key] = (e.self_device_time_total / e.count * per_call,
+                          per_call)
+    if sum(us for us, _ in out.values()) <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return out
+
+
 def timed_ms(fn, reps: int) -> tuple[float, float]:
     """(device ms, call ms) per call of fn over `reps` calls, after one
-    warm-up call.  Device ms is the summed time of the kernels the calls
-    ran (torch.profiler); call ms is the CUDA-event span of the calls,
-    which at small sizes is set by the host launching them."""
+    warm-up call.  Device ms is the summed time of the kernels one call
+    runs (torch.profiler, `device_us`); call ms is the CUDA-event span of
+    the calls, which at small sizes is set by the host launching them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -104,11 +132,8 @@ def timed_ms(fn, reps: int) -> tuple[float, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    if dev_us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return dev_us / 1e3 / reps, call_ms
+    dev_us = sum(us for us, _ in device_us(prof, reps).values())
+    return dev_us / 1e3, call_ms
 
 
 def max_abs_err(got, want) -> int:
@@ -312,6 +337,121 @@ def check_search_step(fm, chunk: dict) -> dict:
             row = {"max_abs_err": 0, "ms": ms[engine.SWITCH_K],
                    "plain_ms": plain_ms, **b, "library_ms": None,
                    "ms_1_step": ms[1], "steps_per_launch": engine.SWITCH_K}
+    kernels.reset_launches()
+    return row
+
+
+def check_width_pass(fm, chunk: dict) -> dict:
+    """K6 against `big_planes_plain` on the smoke chunk: the w / bid / meta
+    planes of its 2,048 reads, bitwise."""
+    import torch
+    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch.align import engine
+    cfg = chunk["cfg"]
+    seqs, lens, _, has_seed, seed_seqs, _ = chunk["args"]
+    run = lambda: engine.big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs)
+    plain = lambda: engine.big_planes_plain(cfg, fm, seqs, lens, has_seed,
+                                            seed_seqs)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        bad = [n for n, g, w in zip(("w", "bid", "meta"), got, want)
+               if max_abs_err([g], [w])]
+        raise AssertionError(f"width_pass: kernel != plain in {bad} (max abs "
+                             f"err {err})")
+    ms, call_ms = timed_ms(run, 20)
+    plain_ms, plain_call_ms = timed_ms(plain, 2)
+    # must move: the three planes out, the bases, lengths and flags in, and
+    # two table rows per base that is one (an N or a position beyond the
+    # read fetches nothing); ~6 integer ops per word of a row and ~40 more
+    # per base
+    pos = torch.arange(cfg.L, device=lens.device)
+    main = (seqs < 4) & (pos[None, None, :] < lens[:, None, None])
+    seed = (seed_seqs < 4) & has_seed[:, None, None]
+    fetches = int(main.sum()) + int(seed.sum())
+    longest = int(main.sum(dim=2).max())
+    moved = (nbytes(*got) + nbytes(seqs, seed_seqs, lens, has_seed)
+             + fetches * 2 * 4 * (4 + fm.wpb))
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound(moved, fetches * (2 * fm.wpb * 6 + 40)),
+           "library_ms": None, "_longest": longest}
+    log(f"K6 width_pass N={lens.shape[0]} L={cfg.L} SL={cfg.SL} "
+        f"intv={fm.intv}: w / bid / meta bitwise equal; {fetches} bases "
+        f"fetched, longest chain {longest}; device ms/call kernel {ms:.5f}, "
+        f"plain {plain_ms:.5f}; call ms kernel {call_ms:.5f}, plain "
+        f"{plain_call_ms:.5f}; bound {row['bound_ms']:.5f} "
+        f"({row['bound_by']}, {moved} bytes)")
+    kernels.reset_launches()
+    return row
+
+
+def check_lane_switch(fm, chunk: dict) -> dict:
+    """K7 against the plain switch on the card: every chunk of
+    `engine.switch_cases` over the smoke reads, at ACAP 256 and 1024: all
+    30 state fields, the 5 output arrays and the count of reads left,
+    bitwise.  Timed on `first`, where all 1,024 lanes load."""
+    import torch
+    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch.align import engine
+
+    def tensors(ch):
+        return ([getattr(ch.st, f) for f in engine.FIELDS] + ch.out_h
+                + [ch.out_nh, ch.out_fb, ch.remaining])
+
+    names = [*engine.FIELDS, "out_hm", "out_hk", "out_hl", "out_nh",
+             "out_fb", "remaining"]
+    row = {}
+    for acap in (256, 1024):
+        cfg = dataclasses.replace(chunk["cfg"], acap=acap)
+        cases = engine.switch_cases(cfg, fm, *chunk["args"], n_lanes=B_LANES)
+        seen = []
+        for name, ch in cases:
+            want, got = ch.clone(), ch.clone()
+            want.switch_plain()
+            got.switch()
+            torch.cuda.synchronize()
+            err = max_abs_err(tensors(got), tensors(want))
+            if err:
+                bad = [n for n, g, w in zip(names, tensors(got),
+                                            tensors(want))
+                       if max_abs_err([g], [w])]
+                raise AssertionError(
+                    f"lane_switch ACAP={acap} case {name}: kernel != plain "
+                    f"switch in {bad} (max abs err {err})")
+            if got.counters() != (int(want.remaining), int(want.st.it)):
+                raise AssertionError(f"lane_switch ACAP={acap} case {name}: "
+                                     "the sync words differ")
+            fin = ch.st.done | ch.st.fb
+            flush = fin & (ch.st.rid >= 0) & (ch.st.rid < ch.N)
+            load = fin & (ch.st.rid + ch.B < ch.N)
+            seen.append(f"{name} (flush {int(flush.sum())}, load "
+                        f"{int(load.sum())}, park {int((fin & ~load).sum())})")
+        log(f"lane_switch B={B_LANES} ACAP={acap}: {len(names)} tensors "
+            f"bitwise equal to the plain switch on {', '.join(seen)}")
+        # ---- times, on the first switch of the chunk: every lane loads
+        first = cases[0][1]
+        reps = 20
+        pool = iter([first.clone() for _ in range(2 * reps + 1)])
+        ms, call_ms = timed_ms(lambda: next(pool).switch(), reps)
+        pool = iter([first.clone() for _ in range(5)])
+        plain_ms, plain_call_ms = timed_ms(
+            lambda: next(pool).switch_plain(), 2)
+        # must move, per loading lane: its three width rows in and out, the
+        # key row and the two root slots of four planes out, the read's
+        # scalars in and the lane's out; per lane its flags and read index
+        P = cfg.L + cfg.SL + 2
+        moved = (B_LANES * (2 * 3 * 2 * P * 8 + acap * 4 + 8 * 4
+                            + (8 + 8 + 1 + 1) + (14 * 8 + 3))
+                 + B_LANES * (8 + 2))
+        b = bound(moved, B_LANES * (3 * 2 * P + acap))
+        log(f"lane_switch B={B_LANES} ACAP={acap} on first (all lanes "
+            f"load): device ms/call kernel {ms:.5f}, plain {plain_ms:.5f}; "
+            f"call ms kernel {call_ms:.5f}, plain {plain_call_ms:.5f}; bound "
+            f"{b['bound_ms']:.5f} ({b['bound_by']}, {moved} bytes)")
+        if acap == 256:   # the main path's arena
+            row = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b,
+                   "library_ms": None}
     kernels.reset_launches()
     return row
 
@@ -538,59 +678,93 @@ def run_aln(args: list[str], out: pathlib.Path) -> dict:
 
 
 def profile_chunk(fms, fm, chunk: dict) -> None:
-    """One warm 2,048-read chunk of the device search: bare wall, then
-    under the profiler its launches and device time by kind, beside the
-    native search of the same reads."""
+    """One warm 2,048-read chunk of the device search: bare wall, the
+    host's time in each of a phase's three calls, then under the profiler
+    its launches and device time by kind, beside the native search of the
+    same reads."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.align import engine
     n = len(chunk["seqs"])
-    run = lambda: engine.run_search_persistent(
-        chunk["cfg"], fm, *chunk["args"], n_lanes=B_LANES)
+    cfg, args = chunk["cfg"], chunk["args"]
+    run = lambda: engine.run_search_persistent(cfg, fm, *args,
+                                               n_lanes=B_LANES)
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, _, fb, steps = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    phases = steps // engine.SWITCH_K
+
+    # the loop of run_search_persistent once more, by hand, with the host
+    # clock around each of a phase's calls
+    seqs, lens, max_diff0, has_seed, seed_seqs, bad = args
+    ch = engine._Chunk(cfg, fm, engine.big_planes(cfg, fm, seqs, lens,
+                                                  has_seed, seed_seqs),
+                       lens, max_diff0, has_seed, bad, B_LANES)
+    torch.cuda.synchronize()
+    host_s = {"switch": 0.0, "search_steps": 0.0, "sync": 0.0}
+    left = n
+    while left > 0:
+        t = [time.perf_counter()]
+        ch.switch()
+        t.append(time.perf_counter())
+        ch.st = engine.search_steps(cfg, fm, seqs, ch.st, engine.SWITCH_K)
+        t.append(time.perf_counter())
+        left, _ = ch.counters()
+        t.append(time.perf_counter())
+        for i, name in enumerate(host_s):
+            host_s[name] += t[i + 1] - t[i]
+    host_us = {k: round(v / phases * 1e6, 1) for k, v in host_s.items()}
+
     kernels.reset_launches()
+    reps = 2
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    counts = dict(kernels.launches)
+        for _ in range(reps):
+            run()
+            torch.cuda.synchronize()
+    counts = {k: v // reps for k, v in kernels.launches.items()}
     kinds = {"search_step": ("search_steps_kernel",),
+             "width_pass": ("width_pass_kernel",),
+             "lane_switch": ("lane_switch_kernel",),
              "K2 occ": ("occ_pair_kernel",),
              "K1 stack_update": ("stack_update_kernel",),
              "torch index/gather/scatter": ("index", "gather", "scatter"),
              "copies": ("memcpy", "memset")}
     dev_us = {k: 0.0 for k in (*kinds, "torch elementwise/reduce")}
-    n_launch = 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    seen = dict.fromkeys(dev_us, 0)
+    for key, (us, launches) in device_us(prof, reps).items():
         kind = next((k for k, pats in kinds.items()
-                     if any(pat in e.key.lower() for pat in pats)),
+                     if any(pat in key.lower() for pat in pats)),
                     "torch elementwise/reduce")
-        dev_us[kind] += e.self_device_time_total
-        n_launch += e.count
+        dev_us[kind] += us
+        seen[kind] += launches
+    n_launch = sum(seen.values())
     total_us = sum(dev_us.values())
-    if total_us <= 0:
-        raise AssertionError("the profiler saw no device time")
+    if n_launch > MAX_LAUNCHES_PER_PHASE * phases:
+        raise AssertionError(
+            f"{n_launch} launches in {phases} phases: more than "
+            f"{MAX_LAUNCHES_PER_PHASE} per phase, torch ops are back between "
+            f"a chunk's upload and its download ({counts})")
     t0 = time.perf_counter()
     engine.native_align_batch(fms, chunk["seqs"], chunk["rseqs"],
                               chunk["opt"])
     native_s = time.perf_counter() - t0
-    phases = steps // engine.SWITCH_K
     shares = ", ".join(f"{k} {v / total_us:.4f}" for k, v in dev_us.items())
+    per_launch = ", ".join(
+        f"{k} {dev_us[k] / max(seen[k], 1):.1f}" for k in ALN_KERNELS)
     log(f"chunk profile ({n} reads, warm): bare wall {wall:.4f} s for "
         f"{steps} steps in {phases} phases = {wall / steps * 1e3:.4f} "
-        f"ms/step, {n / wall:.1f} reads/s; fallback {int(fb.sum())}; under "
-        f"the profiler {n_launch} launches = {n_launch / phases:.1f} per "
-        f"phase, of them {counts}; device time {total_us / 1e6:.4f} s = "
-        f"{total_us / 1e6 / wall:.4f} of the bare wall; by kind: {shares}; "
-        f"search_step {dev_us['search_step'] / max(counts.get('search_step', 0), 1):.1f} "
-        f"us per launch; native search of the same reads {native_s:.4f} s "
+        f"ms/step, {n / wall:.1f} reads/s; fallback {int(fb.sum())}; host "
+        f"us per phase in switch / search_steps / the sync: {host_us}; "
+        f"under the profiler, per run of two, {n_launch} launches = "
+        f"{n_launch / phases:.1f} per phase, of them {counts} (the profiler saw "
+        f"{ {k: seen[k] for k in ALN_KERNELS} }); device time "
+        f"{total_us / 1e6:.4f} s = {total_us / 1e6 / wall:.4f} of the bare "
+        f"wall; by kind: {shares}; us per launch: {per_launch}; native "
+        f"search of the same reads {native_s:.4f} s "
         f"({n / native_s:.0f} reads/s)")
 
 
@@ -646,10 +820,21 @@ SOURCES = {
     "chase_mw": ("ibwa_tpu_torch/csrc/chase.cu",
                  "scripts/bench_chase.py:258"),
     "lf_walk": ("ibwa_tpu_torch/csrc/lf_walk.cu", "ibwa_tpu/fm/walk.py:78"),
+    "width_pass": ("ibwa_tpu_torch/csrc/width_pass.cu",
+                   "ibwa_tpu/align/engine_jax.py:164"),
+    "lane_switch": ("ibwa_tpu_torch/csrc/lane_switch.cu",
+                    "ibwa_tpu/align/engine_jax.py:775"),
 }
 # kernels whose device code runs on the aln path as a stage of another
-# kernel's launch (their own entries stay, for the check and the plain step)
-WITHIN = {"stack_update": "search_step", "occ4_pair": "search_step"}
+# kernel's launch (their own entries stay, for the check and the plain
+# versions)
+WITHIN = {"stack_update": "search_step", "occ4_pair": "search_step",
+          "occ1_pair": "width_pass"}
+# the kernels a chunk of aln launches, and the most launches of any kind a
+# phase of it may average (switch, steps, the sync's copy, and the chunk's
+# allocations, uploads and downloads spread over its phases)
+ALN_KERNELS = ("width_pass", "lane_switch", "search_step")
+MAX_LAUNCHES_PER_PHASE = 12
 
 
 def main() -> int:
@@ -696,7 +881,9 @@ def main() -> int:
     fm = build_device_pair(fms[0], fms[1], dev)
     chunk = smoke_chunk(fms, fq, dev)
     rows = {"stack_update": check_stack(dev), **check_occ(fm, dev),
-            "search_step": check_search_step(fm, chunk)}
+            "width_pass": check_width_pass(fm, chunk),
+            "search_step": check_search_step(fm, chunk),
+            "lane_switch": check_lane_switch(fm, chunk)}
     tables = {label: bench_chase.make_table_device(n, w, SEED, dev)
               for label, n, w in PROBE_TABLES}
     rows.update(check_chase(tables, dev))
@@ -722,6 +909,11 @@ def main() -> int:
     from ibwa_tpu_torch.align import engine
     step_lat = rows["search_step"]["steps_per_launch"] * warp_us["b"] / 1e3
     rows["search_step"]["latency_bound_ms"] = step_lat
+    # a base's two rows depend on the interval the base before left
+    chain = rows["width_pass"].pop("_longest")
+    rows["width_pass"]["latency_bound_ms"] = chain * warp_us["b"] / 1e3
+    log(f"width_pass latency bound: longest chain {chain} bases x one "
+        f"dependent fetch {rows['width_pass']['latency_bound_ms']:.5f} ms")
     log(f"one-warp dependent fetch, us/step: {warp_us}; latency bounds: "
         f"K3/K4 table c {PROBE_STEPS} steps "
         f"{PROBE_STEPS * warp_us['c'] / 1e3:.5f} ms; K5 longest walk "
@@ -740,10 +932,13 @@ def main() -> int:
     aln_launches, hybrid_launches = run_aln_paths(fa, fq)
     for path, counts in (("device-only", aln_launches),
                          ("hybrid", hybrid_launches)):
-        for name in ("search_step", "occ1_pair"):
+        for name in ALN_KERNELS:
             if counts.get(name, 0) <= 0:
                 raise AssertionError(f"kernel {name} never launched on the "
                                      f"{path} path ({counts})")
+        if set(counts) - set(ALN_KERNELS):
+            raise AssertionError(f"the {path} path launched kernels that "
+                                 f"are stages of others there: {counts}")
     profile_chunk(fms, fm, chunk)
     del fms, fm, chunk
     launches.update(aln_launches)

@@ -10,18 +10,30 @@ its own copy, under the same sub-package and file names as the original.
 Kernels (CUDA C++ for sm_90a, built at first use by `kernels.py`):
 
 * `csrc/stack_update.cu` — K1, the fused arena stack update (replaces the
-  Pallas kernel `ibwa_tpu/align/stack_kernel.py::stack_update`)
+  Pallas kernel `ibwa_tpu/align/stack_kernel.py::stack_update`); its body
+  (`csrc/stack_commit.cuh`) is stage 7 of the search step
 * `csrc/occ.cu` — K2, the paired occ4/occ1 row gather + popcount (replaces
-  the XLA hot op `ibwa_tpu/fm/device.py::occ4`/`occ1`)
+  the XLA hot op `ibwa_tpu/fm/device.py::occ4`/`occ1`); its query
+  (`csrc/fm_row.cuh`) is a stage of the search step and of the width pass
+* `csrc/search_step.cu` — SWITCH_K pop-expand-push steps of every search
+  lane in one launch (replaces the XLA `engine_jax._search_step` loop)
 * `csrc/chase.cu` — K3 `chase` and K4 `chase_mw`, the dependent row-fetch
   probe (replaces the Pallas kernels `scripts/bench_chase.py::chase_pallas`
   and `chase_pallas_mw`)
 * `csrc/lf_walk.cu` — K5, the LF walk to the nearest sampled SA row
   (replaces the XLA loop `ibwa_tpu/fm/walk.py::_lf_walk`)
+* `csrc/width_pass.cu` — K6, the width / bid / meta planes of a chunk of
+  reads (replaces the XLA `engine_jax._compute_widths` + `_pack_meta`)
+* `csrc/lane_switch.cu` — K7, the switch phase of the persistent lanes:
+  flush, load, park (replaces the `switch` closure of
+  `engine_jax._run_search_persistent`)
 
 Each kernel has a plain PyTorch version in the module of its wrapper; a
 wrapper runs the plain version for CPU tensors and the kernel for CUDA
-tensors, or raises.
+tensors, or raises.  On the `aln` main path, between a chunk's upload and
+its download, only K6, K7 and the search step run; what is still torch ops
+there is allocation, upload and the final stack / slice of the outputs
+(`_decode` is numpy on the host).
 """
 
 __version__ = "0.1.0"

@@ -20,18 +20,27 @@ Port conventions:
   * JAX's dropped scatters (`mode="drop"` at row B/N) become masked
     writes to rows that exist; gathers whose index JAX would clamp for
     finished lanes are clamped here too.
-  * `_search_step` is the plain step: torch ops plus occ4_pair /
-    occ1_pair (K2, fm/device.py) and stack_update (K1).  `search_steps`
-    runs n of them: the plain step on CPU tensors, one launch of the
-    hand-written kernel `csrc/search_step.cu` (whose stages 3 and 7 are
-    K2's and K1's device code) on CUDA tensors.
+  * Between a chunk's upload and its download the main path runs three
+    hand-written kernels, each with its plain version beside it, taken
+    for CPU tensors only: `big_planes` (the width pass, once per chunk:
+    `csrc/width_pass.cu`, whose occ query is K2's device code; plain
+    `big_planes_plain`, torch ops plus one occ1_pair per base), then per
+    phase `_Chunk.switch` (`csrc/lane_switch.cu`; plain `switch_plain`
+    with `_load_lanes`) and `search_steps` (`csrc/search_step.cu`, whose
+    stages 3 and 7 are K2's and K1's device code; plain `_search_step`,
+    torch ops plus occ4_pair / occ1_pair and stack_update).
   * The persistent loop launches the SWITCH_K steps of a phase at once
-    and syncs with the host once per switch phase, never per step.
+    and syncs with the host once per switch phase, never per step: one
+    copy of the two words (reads left, steps) the kernels keep.
+  * Still torch ops on the main path: the allocations and uploads of a
+    chunk, the final stack / slice of its outputs; `_decode` is numpy on
+    the host.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import ctypes
 import dataclasses
 import functools
@@ -224,15 +233,77 @@ def _pack_meta(w, bid):
     return (bp | (bid << 14) | ((wp == w).to(I64) << 28)) & MASK
 
 
-def big_planes(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, has_seed,
-               seed_seqs):
-    """w / bid / meta planes of every read of a chunk: [N, 2, P]."""
+def big_planes_plain(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
+                     has_seed, seed_seqs):
+    """Plain version of `big_planes`: two `_compute_widths` passes (the
+    read, then its seed suffix, of length 0 where has_seed is false) and
+    `_pack_meta` over the concatenated planes."""
     w, bid = _compute_widths(fm, seqs, lens, cfg.L)
     slens = torch.where(has_seed, cfg.SL, 0)
     sw, sbid = _compute_widths(fm, seed_seqs, slens, cfg.SL)
     w = torch.cat([w, sw], dim=2)
     bid = torch.cat([bid, sbid], dim=2)
     return w, bid, _pack_meta(w, bid)
+
+
+def _check_tensor(who: str, name: str, t: torch.Tensor, dev, dtype,
+                  shape) -> None:
+    """Raise unless `t` is what a kernel takes: on `dev`, of `dtype` and
+    `shape`, contiguous."""
+    if (t.device != dev or t.dtype != dtype
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+        raise ValueError(
+            f"{who}: {name} must be a contiguous {dtype}{list(shape)} on "
+            f"{dev}, got {t.dtype}{list(t.shape)} on {t.device}")
+
+
+def _check_index(fm: DeviceFmPair) -> None:
+    _check_cuda_table(fm)
+    if fm.L2.dtype != I64 or not fm.L2.is_contiguous():
+        raise ValueError("L2 must be contiguous int64")
+
+
+def _launch_width_pass(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
+                       has_seed, seed_seqs, stream: int):
+    """Check the tensors the kernel is given and launch `ibwa_width_pass`
+    on them; returns the three planes it filled."""
+    dev = fm.device
+    N = lens.shape[0]
+    for name, t, dtype, shape in (
+            ("seqs", seqs, torch.uint8, (N, 2, cfg.L)),
+            ("seed_seqs", seed_seqs, torch.uint8, (N, 2, cfg.SL)),
+            ("lens", lens, I64, (N,)),
+            ("has_seed", has_seed, torch.bool, (N,))):
+        _check_tensor("big_planes", name, t, dev, dtype, shape)
+    _check_index(fm)
+    w, bid, meta = (torch.empty((N, 2, cfg.L + cfg.SL + 2), dtype=I64,
+                                device=dev) for _ in range(3))
+    rc = kernels.lib().ibwa_width_pass(
+        fm.blocks.data_ptr(), fm.primary.data_ptr(), fm.L2.data_ptr(),
+        fm.l2diff.data_ptr(), seqs.data_ptr(), seed_seqs.data_ptr(),
+        lens.data_ptr(), has_seed.data_ptr(), w.data_ptr(), bid.data_ptr(),
+        meta.data_ptr(), N, cfg.L, cfg.SL, fm.seq_len, fm.n_blk, fm.intv,
+        stream)
+    kernels.check(rc, "width_pass")
+    kernels.launches["width_pass"] += 1
+    return w, bid, meta
+
+
+def big_planes(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, has_seed,
+               seed_seqs):
+    """w / bid / meta planes of every read of a chunk: int64[N, 2, P],
+    P = L + SL + 2 (columns 0..L the read, L+1.. its seed suffix).
+
+    seqs uint8[N, 2, L], lens int64[N], has_seed bool[N], seed_seqs
+    uint8[N, 2, SL].  CPU tensors: `big_planes_plain`.  CUDA tensors: one
+    launch of the kernel `csrc/width_pass.cu`."""
+    dev = fm.device
+    if dev.type == "cpu":
+        return big_planes_plain(cfg, fm, seqs, lens, has_seed, seed_seqs)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _launch_width_pass(cfg, fm, seqs, lens, has_seed, seed_seqs,
+                              torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _search_step(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
@@ -488,10 +559,9 @@ class _StepArgs(ctypes.Structure):
             "state_e")])
 
 
-def _launch_search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs, st,
-                         n_steps: int, stream: int) -> None:
-    """Check the tensors the kernel is given (it takes nothing else) and
-    launch `ibwa_search_steps` on them; `st` is updated in place."""
+def _check_state(who: str, cfg: EngineConfig, st: SearchState, dev) -> int:
+    """Raise unless every field of `st` is the contiguous tensor on `dev`
+    the kernels take; returns the lane count."""
     B = st.lens.shape[0]
     P = cfg.L + cfg.SL + 2
     shapes = {"sk": (B, cfg.acap), "sl": (B, cfg.acap), "sm1": (B, cfg.acap),
@@ -499,14 +569,16 @@ def _launch_search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs, st,
               "bid": (B, 2, P), "meta": (B, 2, P), "hk": (B, HCAP),
               "hl": (B, HCAP), "hm": (B, HCAP), "it": ()}
     for name in FIELDS:
-        t = getattr(st, name)
-        want = (_STATE_DTYPES.get(name, I64), shapes.get(name, (B,)))
-        if (t.device != fm.device or (t.dtype, tuple(t.shape)) != want
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"search_steps: {name} must be a contiguous {want[0]}"
-                f"{list(want[1])} on {fm.device}, got {t.dtype}"
-                f"{list(t.shape)} on {t.device}")
+        _check_tensor(who, name, getattr(st, name), dev,
+                      _STATE_DTYPES.get(name, I64), shapes.get(name, (B,)))
+    return B
+
+
+def _launch_search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs, st,
+                         n_steps: int, stream: int) -> None:
+    """Check the tensors the kernel is given (it takes nothing else) and
+    launch `ibwa_search_steps` on them; `st` is updated in place."""
+    B = _check_state("search_steps", cfg, st, fm.device)
     if (seqs.device != fm.device or seqs.dtype != torch.uint8
             or seqs.dim() != 3 or tuple(seqs.shape[1:]) != (2, cfg.L)
             or seqs.shape[0] < 1 or not seqs.is_contiguous()):
@@ -515,9 +587,7 @@ def _launch_search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs, st,
     if cfg.acap % 32:
         raise ValueError(f"search_steps: ACAP={cfg.acap} must be a multiple "
                          "of 32 (one warp per lane row)")
-    _check_cuda_table(fm)
-    if fm.L2.dtype != I64 or not fm.L2.is_contiguous():
-        raise ValueError("L2 must be contiguous int64")
+    _check_index(fm)
     args = _StepArgs(
         **{name: getattr(st, name).data_ptr() for name in FIELDS},
         blocks=fm.blocks.data_ptr(), primary=fm.primary.data_ptr(),
@@ -596,25 +666,48 @@ def _empty_lanes(cfg: EngineConfig, B: int, dev) -> SearchState:
     """Lane state "before the first read": rid = lane - B and every lane
     done, so the first switch phase loads read `lane` into lane `lane`.
     An empty arena with its pop (slot 0, a free key) and zero width planes
-    with their meta, as a step would leave them."""
+    with their meta, as a step would leave them.  No two fields share
+    memory: the kernels update a state in place."""
     P = cfg.L + cfg.SL + 2
-    zb = torch.zeros(B, dtype=I64, device=dev)
-    zp = lambda *s, dt=torch.int32: torch.zeros(*s, dtype=dt, device=dev)
-    fb = torch.zeros(B, dtype=torch.bool, device=dev)
-    w = zp(B, 2, P, dt=I64)
+
+    def zeros(n, *shape, dt=I64):   # n distinct zero tensors, one fill
+        return torch.zeros(n, *shape, dtype=dt, device=dev).unbind(0)
+
+    (lane_it, stack_n, n_hits, best_score, best_cnt, max_diff, pslot, pk,
+     pl, pm1, pm2) = zeros(11, B)
+    sk, sl, sm1, sm2 = zeros(4, B, cfg.acap, dt=torch.int32)
+    w, bid = zeros(2, B, 2, P)
+    hk, hl, hm = zeros(3, B, HCAP)
+    has_seed, fb = zeros(2, B, dt=torch.bool)
+    full = lambda v: torch.full((B,), v, dtype=I64, device=dev)
     return SearchState(
-        rid=torch.arange(B, device=dev) - B, lens=zb + 1, has_seed=fb,
-        lane_it=zb, sk=zp(B, cfg.acap), sl=zp(B, cfg.acap),
-        sm1=zp(B, cfg.acap), sm2=zp(B, cfg.acap),
+        rid=torch.arange(B, device=dev) - B, lens=full(1), has_seed=has_seed,
+        lane_it=lane_it, sk=sk, sl=sl, sm1=sm1, sm2=sm2,
         key=torch.full((B, cfg.acap), INT32_MAX, dtype=torch.int32,
                        device=dev),
-        seqc=zb + 2, stack_n=zb, w=w, bid=zp(B, 2, P, dt=I64),
-        meta=_pack_meta(w, w),
-        hk=zp(B, HCAP, dt=I64), hl=zp(B, HCAP, dt=I64),
-        hm=zp(B, HCAP, dt=I64), n_hits=zb, best_score=zb, best_cnt=zb,
-        max_diff=zb, done=~fb, fb=fb, it=torch.zeros((), dtype=I64,
-                                                     device=dev),
-        pslot=zb, pkey=zb + INT32_MAX, pk=zb, pl=zb, pm1=zb, pm2=zb)
+        seqc=full(2), stack_n=stack_n, w=w, bid=bid, meta=_pack_meta(w, w),
+        hk=hk, hl=hl, hm=hm, n_hits=n_hits, best_score=best_score,
+        best_cnt=best_cnt, max_diff=max_diff, done=~fb, fb=fb,
+        it=torch.zeros((), dtype=I64, device=dev),
+        pslot=pslot, pkey=full(INT32_MAX), pk=pk, pl=pl, pm1=pm1, pm2=pm2)
+
+
+class _SwitchArgs(ctypes.Structure):
+    """The launch arguments of `ibwa_lane_switch`, field for field the
+    struct IbwaSwitchArgs of csrc/lane_switch.cu: the 30 state tensors,
+    the chunk's outputs and count of reads left, the per-read arrays and
+    planes, then shapes and the constants of a root entry."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in FIELDS]
+        + [(name, ctypes.c_void_p) for name in (
+            "out_hm", "out_hk", "out_hl", "out_nh", "out_fb", "remaining",
+            "read_lens", "read_max_diff", "read_has_seed", "read_bad",
+            "big_w", "big_bid", "big_meta")]
+        + [("seq_len", ctypes.c_int64)]
+        + [(name, ctypes.c_int) for name in (
+            "B", "N", "P", "acap", "hcap", "s_mm", "s_gapo", "s_gape",
+            "max_gapo", "max_gape", "max_seq", "state_m")])
 
 
 class _Chunk:
@@ -622,32 +715,74 @@ class _Chunk:
     lane state, the per-read planes and the output rows (engine_jax.
     _run_search_persistent's carry).
 
-    seqs uint8[N, 2, L], seed_seqs uint8[N, 2, SL], lens / max_diff0
-    int64[N], has_seed / bad bool[N], all on fm's device."""
+    big: the chunk's (w, bid, meta) planes int64[N, 2, P] (`big_planes`);
+    lens / max_diff0 int64[N], has_seed / bad bool[N], all on fm's
+    device."""
 
-    def __init__(self, cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
-                 max_diff0, has_seed, seed_seqs, bad, n_lanes: int):
-        self.cfg, self.fm = cfg, fm
+    def __init__(self, cfg: EngineConfig, fm: DeviceFmPair, big, lens,
+                 max_diff0, has_seed, bad, n_lanes: int):
+        self.cfg, self.fm, self.big = cfg, fm, tuple(big)
         self.lens, self.max_diff0 = lens, max_diff0
         self.has_seed, self.bad = has_seed, bad
         self.N, self.B = lens.shape[0], n_lanes
         dev = fm.device
-        self.big = big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs)
         # outputs are indexed by rid mod Npad: a lane's rid stays congruent
         # to the lane mod B, so every lane owns distinct rows, and a lane
         # with nothing to flush rewrites its row unchanged (no dropped
         # scatter)
         self.npad = -(-self.N // self.B) * self.B
         self.out_h = [torch.zeros(self.npad, HCAP, dtype=I64, device=dev)
-                      for _ in range(3)]
+                      for _ in range(3)]      # hm, hk, hl
         self.out_nh = torch.zeros(self.npad, dtype=I64, device=dev)
         self.out_fb = torch.zeros(self.npad, dtype=torch.bool, device=dev)
-        self.remaining = torch.tensor(self.N, dtype=I64, device=dev)
         self.st = _empty_lanes(cfg, self.B, dev)
+        self._bind_counters(torch.tensor([self.N, 0], dtype=I64,
+                                         device=dev))
+
+    def _bind_counters(self, sync: torch.Tensor) -> None:
+        """The reads not yet flushed and the step count as the two words
+        of one tensor, int64[2], which the kernels update in place, so
+        that a phase ends in one copy to the host."""
+        self.sync = sync
+        self.remaining, self.st.it = sync[0], sync[1]
+
+    def counters(self) -> tuple[int, int]:
+        """(reads not yet flushed, steps so far): the sync with the
+        device, one copy of `sync` on a CUDA device, where `switch` and
+        `search_steps` update both words in place.  The plain switch and
+        step rebind their counters and leave `sync` behind."""
+        if self.fm.device.type == "cuda":
+            left, steps = self.sync.tolist()
+            return left, steps
+        return int(self.remaining), int(self.st.it)
+
+    def clone(self) -> "_Chunk":
+        """A copy that shares the per-read inputs with `self` and no
+        tensor that a switch or a step writes."""
+        new = copy.copy(self)
+        new.st = clone_state(self.st)
+        new.out_h = [t.clone() for t in self.out_h]
+        new.out_nh, new.out_fb = self.out_nh.clone(), self.out_fb.clone()
+        new._bind_counters(torch.stack([self.remaining, self.st.it]))
+        return new
 
     def switch(self) -> None:
         """The switch phase: flush the finished lanes' hits to their
-        reads' output rows and load their next read (or park them)."""
+        reads' output rows and load their next read (or park them).
+
+        CPU tensors: `switch_plain`.  CUDA tensors: one launch of the
+        kernel `csrc/lane_switch.cu`, which updates the lane state, the
+        output rows and the count of reads left in place."""
+        dev = self.fm.device
+        if dev.type == "cpu":
+            return self.switch_plain()
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        self._launch_switch(torch.cuda.current_stream(dev).cuda_stream)
+
+    def switch_plain(self) -> None:
+        """Plain version of `switch` (it rebinds the state's fields and
+        `remaining` to new tensors)."""
         st, N = self.st, self.N
         fin = st.done | st.fb
         valid = (st.rid >= 0) & (st.rid < N) & fin
@@ -666,6 +801,42 @@ class _Chunk:
         st.done = torch.where(fin, park | (load & self.bad[crid]), st.done)
         st.fb = torch.where(fin, False, st.fb)
 
+    def _launch_switch(self, stream: int) -> None:
+        """Check the tensors the kernel is given and launch
+        `ibwa_lane_switch` on them."""
+        cfg, dev, N = self.cfg, self.fm.device, self.N
+        B = _check_state("switch", cfg, self.st, dev)
+        P = cfg.L + cfg.SL + 2
+        named = {
+            "out_hm": (self.out_h[0], I64, (self.npad, HCAP)),
+            "out_hk": (self.out_h[1], I64, (self.npad, HCAP)),
+            "out_hl": (self.out_h[2], I64, (self.npad, HCAP)),
+            "out_nh": (self.out_nh, I64, (self.npad,)),
+            "out_fb": (self.out_fb, torch.bool, (self.npad,)),
+            "remaining": (self.remaining, I64, ()),
+            "read_lens": (self.lens, I64, (N,)),
+            "read_max_diff": (self.max_diff0, I64, (N,)),
+            "read_has_seed": (self.has_seed, torch.bool, (N,)),
+            "read_bad": (self.bad, torch.bool, (N,)),
+            "big_w": (self.big[0], I64, (N, 2, P)),
+            "big_bid": (self.big[1], I64, (N, 2, P)),
+            "big_meta": (self.big[2], I64, (N, 2, P))}
+        for name, (t, dtype, shape) in named.items():
+            _check_tensor("switch", name, t, dev, dtype, shape)
+        if B != self.B or N < 1 or cfg.acap < 2:
+            raise ValueError(f"switch: {B} lanes for a chunk of {self.B}, "
+                             f"{N} reads, ACAP {cfg.acap}")
+        args = _SwitchArgs(
+            **{name: getattr(self.st, name).data_ptr() for name in FIELDS},
+            **{name: t.data_ptr() for name, (t, _, _) in named.items()},
+            seq_len=self.fm.seq_len, B=B, N=N, P=P, acap=cfg.acap, hcap=HCAP,
+            s_mm=cfg.s_mm, s_gapo=cfg.s_gapo, s_gape=cfg.s_gape,
+            max_gapo=cfg.max_gapo, max_gape=cfg.max_gape, max_seq=MAX_SEQ,
+            state_m=STATE_M)
+        rc = kernels.lib().ibwa_lane_switch(ctypes.byref(args), stream)
+        kernels.check(rc, "lane_switch")
+        kernels.launches["lane_switch"] += 1
+
 
 def run_search_persistent(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
                           max_diff0, has_seed, seed_seqs, bad,
@@ -673,21 +844,24 @@ def run_search_persistent(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
     """Persistent-lane scheduler (engine_jax._run_search_persistent):
     n_lanes lanes stream through the N reads of a chunk, lane b taking
     reads b, b + B, ...; every SWITCH_K steps a switch phase flushes the
-    finished lanes' hits and loads their next read.  Inputs as `_Chunk`.
-    Returns (hits int64[N, HCAP, 3] as (meta, k, l), n_hits int64[N],
-    fb bool[N], steps)."""
-    ch = _Chunk(cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs, bad,
-                n_lanes)
+    finished lanes' hits and loads their next read.
+
+    seqs uint8[N, 2, L], seed_seqs uint8[N, 2, SL], lens / max_diff0
+    int64[N], has_seed / bad bool[N], all on fm's device.  Returns (hits
+    int64[N, HCAP, 3] as (meta, k, l), n_hits int64[N], fb bool[N],
+    steps)."""
+    ch = _Chunk(cfg, fm, big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs),
+                lens, max_diff0, has_seed, bad, n_lanes)
     while True:
         ch.switch()
         ch.st = search_steps(cfg, fm, seqs, ch.st, SWITCH_K)
-        left, steps = torch.stack([ch.remaining, ch.st.it]).tolist()  # sync
+        left, steps = ch.counters()  # sync
         if left <= 0 or steps >= MAX_ITERS * 8:
             break
     N = ch.N
-    out_fb = ch.out_fb | (ch.remaining > 0)  # iteration bound: all fall back
+    out_fb = ch.out_fb | (left > 0)  # iteration bound: all fall back
     hits = torch.stack(ch.out_h, dim=-1)[:N]
-    return hits, ch.out_nh[:N], out_fb[:N], int(steps)
+    return hits, ch.out_nh[:N], out_fb[:N], steps
 
 
 def clone_state(st: SearchState) -> SearchState:
@@ -697,13 +871,87 @@ def clone_state(st: SearchState) -> SearchState:
                           for name in FIELDS})
 
 
+def _plain_chunk(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, max_diff0,
+                 has_seed, seed_seqs, bad, n_lanes: int) -> _Chunk:
+    """A chunk over the planes of the plain width pass: where the runs
+    start that the kernels are held against."""
+    return _Chunk(cfg, fm, big_planes_plain(cfg, fm, seqs, lens, has_seed,
+                                            seed_seqs),
+                  lens, max_diff0, has_seed, bad, n_lanes)
+
+
+def switch_cases(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, max_diff0,
+                 has_seed, seed_seqs, bad, n_lanes: int
+                 ) -> list[tuple[str, _Chunk]]:
+    """Chunks to hold `_Chunk.switch` against the plain switch on: (name,
+    chunk as it stands just before a switch phase), from one run of the
+    persistent search with the plain width pass, switch and step (inputs
+    as `run_search_persistent`; N > n_lanes, so that lanes reload).
+
+      `first`: the lanes before their first read, every lane loads;
+      `mid`: the first later phase in which some lanes have finished and
+      others have not; every fifth lane still searching is marked for the
+      host search (fb), as a capacity overflow would leave it;
+      `park`: the first phase in which a finished lane has no read left;
+      `last`: the switch that flushes the chunk's last read, the other
+      lanes parked already;
+      `bad`: `first` over reads of which every third has too many Ns, so
+      its lane loads it finished;
+      `none`: `mid` with no lane finished: nothing may change;
+      `all`: `mid` with every lane finished at once;
+      `tail`: `first` over fewer reads than lanes (three quarters), the
+      other lanes park at once."""
+    ch = _plain_chunk(cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs,
+                      bad, n_lanes)
+    cases = {"first": ch.clone()}
+    while True:
+        ch.switch_plain()
+        for _ in range(SWITCH_K):
+            ch.st = _search_step(cfg, fm, seqs, ch.st)
+        st = ch.st
+        fin = st.done | st.fb
+        left = int(ch.remaining - (fin & (st.rid < ch.N)).sum())
+        if "mid" not in cases and bool(fin.any()) and not bool(fin.all()):
+            mid = ch.clone()
+            busy = torch.nonzero(~fin)[::5, 0]
+            mid.st.fb[busy] = True
+            cases["mid"] = mid
+        if "park" not in cases and bool((fin & (st.rid < ch.N)
+                                         & (st.rid + ch.B >= ch.N)).any()):
+            cases["park"] = ch.clone()
+        if left <= 0 or int(st.it) >= MAX_ITERS * 8:
+            cases["last"] = ch.clone()
+            break
+    missing = {"mid", "park"} - set(cases)
+    if missing:
+        raise ValueError(f"switch_cases: the run never reached {missing}")
+
+    with_bad = cases["first"].clone()
+    with_bad.bad = bad.clone()
+    with_bad.bad[::3] = True
+    none = cases["mid"].clone()
+    none.st.done = torch.zeros_like(none.st.done)
+    none.st.fb = torch.zeros_like(none.st.fb)
+    every = cases["mid"].clone()
+    every.st.done = torch.ones_like(every.st.done)
+    n_tail = n_lanes - n_lanes // 4
+    tail = _Chunk(cfg, fm, [b[:n_tail].contiguous() for b in ch.big],
+                  lens[:n_tail].contiguous(), max_diff0[:n_tail].contiguous(),
+                  has_seed[:n_tail].contiguous(), bad[:n_tail].contiguous(),
+                  n_lanes)
+    cases.update(bad=with_bad, none=none, all=every, tail=tail)
+    return [(name, cases[name]) for name in (
+        "first", "mid", "park", "last", "bad", "none", "all", "tail")]
+
+
 def step_cases(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, max_diff0,
                has_seed, seed_seqs, bad, n_lanes: int,
                phases: tuple[int, ...] = (0, 2, 5)
                ) -> list[tuple[str, EngineConfig, torch.Tensor, SearchState]]:
     """States to hold `search_steps` against the plain step on: (name,
     config, seqs, state) from one run of the persistent search with the
-    plain step over the chunk (inputs as `_Chunk`).
+    plain width pass, switch and step over the chunk (inputs as
+    `run_search_persistent`).
 
     `phase<p>`: the lanes as switch phase p left them, before its
     SWITCH_K steps (phase 0: every lane at the root of its first read;
@@ -720,11 +968,11 @@ def step_cases(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, max_diff0,
       third base of the reads an N, so exact-extension chains run into
       bases that are no base;
       `iter_cap`: a config whose step budget ends inside the phase."""
-    ch = _Chunk(cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs, bad,
-                n_lanes)
+    ch = _plain_chunk(cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs,
+                      bad, n_lanes)
     cases = []
     for p in range(max(phases) + 1):
-        ch.switch()
+        ch.switch_plain()
         if p in phases:
             cases.append((f"phase{p}", cfg, seqs, clone_state(ch.st)))
         for _ in range(SWITCH_K):

@@ -59,6 +59,11 @@ _SIGNATURES = {
     "ibwa_lf_walk": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _L, _P],
     # the argument struct (align/engine.py::_StepArgs), stream
     "ibwa_search_steps": [_P, _P],
+    # blocks, primary, L2, l2diff, seqs, seed_seqs, lens, has_seed, w, bid,
+    # meta, n_reads, L, SL, seq_len, n_blk, intv, stream
+    "ibwa_width_pass": [_P] * 11 + [_I, _I, _I, _L, _L, _I, _P],
+    # the argument struct (align/engine.py::_SwitchArgs), stream
+    "ibwa_lane_switch": [_P, _P],
 }
 
 

@@ -1,7 +1,8 @@
 """ibwa_tpu_torch's search engine against ibwa_tpu's JAX engine and the
 host emulator (engine_ref, the semantic oracle), on the CPU.
 
-* widths / meta planes equal JAX's `_compute_widths` / `_pack_meta`;
+* widths / meta planes equal JAX's `_compute_widths` / `_pack_meta` /
+  `_init_state` on reads of every shape the width pass tells apart;
 * step-level parity: from one JAX `_init_state`, 32 JAX `_search_step`s
   (with `stack_update_xla`) and 32 port steps leave every one of the 30
   state planes equal after every step — the test that finds a broken step;
@@ -103,11 +104,55 @@ def _assert_state_equal(tst, jst, step):
         np.testing.assert_array_equal(g, w, err_msg=f"step {step}: {name}")
 
 
-def test_widths_and_meta_match_jax(small_index):
+def _width_reads(seq, case):
+    """Reads for one case of the width pass, as (seqs, rseqs) code arrays
+    stored reversed like `_make_reads`'s: 24 reads from a numpy seed."""
+    if case == "mixed":
+        return _make_reads(seq, n=24, read_len=60, seed=3)
+    rng = np.random.default_rng(11)
+    nt4 = np.frombuffer(seq.encode(), dtype=np.uint8)
+    genome = np.select([nt4 == ord(c) for c in "ACGT"], [0, 1, 2, 3])
+    lengths = {"full": [56], "short": [56, 40, 33, 50],
+               "no_seed": [56, 32, 24, 31]}.get(case, [56, 48])
+    seqs, rseqs = [], []
+    for i in range(24):
+        n = lengths[i % len(lengths)]
+        pos = int(rng.integers(0, len(genome) - n))
+        codes = genome[pos:pos + n].astype(np.uint8)
+        if case == "n_inside":
+            codes[rng.integers(1, n - 1, size=1 + i % 3)] = 4
+        elif case == "n_at_ends":
+            codes[[0, -1][i % 2]] = 4
+            if i % 3 == 0:
+                codes[[0, -1]] = 4
+        elif case == "resets" and i % 2 == 0:
+            # no such sequence in the genome: the interval empties and
+            # starts over every few bases
+            codes = rng.integers(0, 4, n).astype(np.uint8)
+        rc = np.where(codes < 4, 3 - codes, codes).astype(np.uint8)
+        seqs.append(codes[::-1].copy())
+        rseqs.append(rc[::-1].copy())
+    return seqs, rseqs
+
+
+@pytest.mark.parametrize("case", ["mixed", "full", "short", "no_seed",
+                                  "n_inside", "n_at_ends", "resets"])
+def test_widths_and_meta_match_jax(small_index, case):
+    """The width pass against JAX: reads as long as the padded length,
+    shorter ones, reads too short for a seed, N bases inside and at both
+    ends, and reads whose interval resets several times."""
     fms, seq = small_index
-    seqs, rseqs = _make_reads(seq, n=24, read_len=60, seed=3)
+    seqs, rseqs = _width_reads(seq, case)
     jcfg, tcfg, (sq, lens, md, hs, ssq, bad) = _batch(fms, seqs, rseqs,
                                                       GapOpt())
+    if case == "full":
+        assert (lens == tcfg.L).all()
+    elif case == "short":
+        assert (lens < tcfg.L).any() and hs.all()
+    elif case == "no_seed":
+        assert (~hs).any() and hs.any() and (lens == 32).any()
+    elif case.startswith("n_"):
+        assert ((sq == 4) & (np.arange(tcfg.L) < lens[:, None, None])).any()
     jfm = jdev.build_device_pair(fms[0], fms[1], dimer=False)
     tfm = tdev.build_device_pair(fms[0], fms[1], "cpu")
     jw, jbid = engine_jax._compute_widths(jfm, jnp.asarray(sq),
@@ -120,6 +165,8 @@ def test_widths_and_meta_match_jax(small_index):
     np.testing.assert_array_equal(
         engine._pack_meta(tw, tbid).numpy(),
         np.asarray(engine_jax._pack_meta(jw, jbid)))
+    if case == "resets":   # bid counts the resets: several in one read
+        assert int(tbid.max()) >= 4
     # the full per-chunk planes, seed widths included
     big = engine.big_planes(tcfg, tfm, torch.from_numpy(sq),
                             torch.from_numpy(lens), torch.from_numpy(hs),
@@ -130,6 +177,19 @@ def test_widths_and_meta_match_jax(small_index):
         jnp.asarray(bad))
     for t, j in zip(big, jst[11:14]):    # w, bid, meta
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+def test_big_planes_rejects_other_devices(small_index):
+    """Only CPU tensors take the plain width pass; an index on any device
+    but a CUDA card raises."""
+    fms, seq = small_index
+    seqs, rseqs = _width_reads(seq, "short")
+    _, tcfg, arrs = _batch(fms, seqs, rseqs, GapOpt())
+    sq, lens, _, hs, ssq, _ = (torch.from_numpy(a) for a in arrs)
+    tfm = tdev.build_device_pair(fms[0], fms[1], "cpu")
+    meta_fm = dataclasses.replace(tfm, blocks=tfm.blocks.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        engine.big_planes(tcfg, meta_fm, sq, lens, hs, ssq)
 
 
 @pytest.mark.parametrize("case", ["default", "gappy"])
