@@ -21,9 +21,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      load, mid-search, parking, the last flush, bad reads, no lane or every
      lane finished, fewer reads than lanes), 1,024 lanes x ACAP 256 and
      1024, all 30 state fields, the 5 output arrays and the count of reads
-     left; K3 chase and K4 chase_mw (W=4) on the probe's three tables; K5
-     lf_walk on 131,072 random rows plus the edge rows, at block intervals
-     32, 64 and 128
+     left; K8 search_chunk (one launch per chunk; its step and switch
+     stages are the device code of the two before) on the smoke chunk
+     against the plain loop and against the loop of the phased kernels,
+     against the latter also on the `bad`, `tail` and `all` inputs of
+     `engine.switch_cases` and at ACAP 1024, with and without its
+     prefetch: hit counts, fallback flags, the step count and the hits
+     below each count; K3
+     chase and K4 chase_mw (W=4) on the probe's three tables; K5 lf_walk
+     on 131,072 random rows plus the edge rows, at block intervals 32, 64
+     and 128
   4. the paths, each with the launch counts set to 0 just before it and
      read just after:
      a. the dependent-gather probe (`bench_chase.probe`) on three tables
@@ -38,20 +45,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         `index` and cached under .bench/smoke/), 16,384 simulated 100 bp
         reads; `ibwa_tpu_torch aln` device-only (IBWA_HOST_FRAC=0), then
         hybrid; each .sai must be byte-identical to `--engine native`;
+        both must launch width_pass and search_chunk and no other kernel;
         then the profile of one warm 2,048-read chunk (bare wall,
-        launches, device busy share, device time by kind)
-     Every kernel must have launched on its path; K1's and K2's occ4 code
-     runs there as stages of search_step and K2's occ1 code as a stage of
-     width_pass, whose launches they carry.
+        launches, device busy share, device time by kind, the lanes'
+        iterations) beside the loop of the phased kernels on the same
+        chunk, and the prefetch of the step on and off
+     Every kernel must have launched on its path; the step and the switch
+     run there as stages of search_chunk, K1's and K2's occ4 code as
+     stages of the step, and K2's occ1 code as a stage of width_pass,
+     whose launches they carry.
   5. the result lines: the card, the kernel table, and the contract line
 
 `bound_ms` of the kernel table is the least time the card could take for
 the call: the larger of the bytes the call must move over 3.35 TB/s and
 its integer operations over 67 Tops/s (the card's non-tensor-core rate);
 for the data-dependent kernels it counts the rows this run fetched.  The
-chained kernels (chase, lf_walk, search_step, width_pass) also get a
-latency bound: their dependent fetches times the one-warp step the probe
-measured.
+chained kernels (chase, lf_walk, search_step, search_chunk, width_pass)
+also get a latency bound: their dependent fetches times the one-warp step
+the probe measured.
 """
 
 from __future__ import annotations
@@ -386,11 +397,12 @@ def check_width_pass(fm, chunk: dict) -> dict:
     return row
 
 
-def check_lane_switch(fm, chunk: dict) -> dict:
+def check_lane_switch(fm, chunk: dict) -> tuple[dict, dict]:
     """K7 against the plain switch on the card: every chunk of
     `engine.switch_cases` over the smoke reads, at ACAP 256 and 1024: all
     30 state fields, the 5 output arrays and the count of reads left,
-    bitwise.  Timed on `first`, where all 1,024 lanes load."""
+    bitwise.  Timed on `first`, where all 1,024 lanes load.  Returns the
+    table row and the cases at ACAP 256 by name."""
     import torch
     from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.align import engine
@@ -401,10 +413,12 @@ def check_lane_switch(fm, chunk: dict) -> dict:
 
     names = [*engine.FIELDS, "out_hm", "out_hk", "out_hl", "out_nh",
              "out_fb", "remaining"]
-    row = {}
+    row, cases256 = {}, {}
     for acap in (256, 1024):
         cfg = dataclasses.replace(chunk["cfg"], acap=acap)
         cases = engine.switch_cases(cfg, fm, *chunk["args"], n_lanes=B_LANES)
+        if acap == 256:
+            cases256 = dict(cases)
         seen = []
         for name, ch in cases:
             want, got = ch.clone(), ch.clone()
@@ -453,7 +467,157 @@ def check_lane_switch(fm, chunk: dict) -> dict:
             row = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b,
                    "library_ms": None}
     kernels.reset_launches()
-    return row
+    return row, cases256
+
+
+def kernel_ms(prof, reps: int, name: str) -> float:
+    """Device ms per call of the kernels whose name holds `name`."""
+    return sum(us for key, (us, _) in device_us(prof, reps).items()
+               if name in key) / 1e3
+
+
+def launch_chunk(cfg, fm, args, n_lanes: int, mode: int):
+    """`engine.search_chunk` on width planes of its own (the kernel updates
+    them in place), in the kernel's `mode`: 1 as the engine runs it, 0
+    without the step's rows asked ahead."""
+    import torch
+    from ibwa_tpu_torch.align import engine
+    seqs, lens, md, hs, ssq, bad = args
+    big = engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
+    return engine._launch_search_chunk(
+        cfg, fm, seqs, big, lens, md, hs, bad, n_lanes,
+        torch.cuda.current_stream().cuda_stream, mode)
+
+
+def time_search_chunk(cfg, fm, args, reps: int, mode: int) -> float:
+    """Device ms of one `search_chunk` launch on the chunk `args`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    n_lanes = min(B_LANES, args[1].shape[0])
+    launch_chunk(cfg, fm, args, n_lanes, mode)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch_chunk(cfg, fm, args, n_lanes, mode)
+        torch.cuda.synchronize()
+    return kernel_ms(prof, reps, "search_chunk_kernel")
+
+
+def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
+    """K8 against its plain version, the phased loop, on the card.  Against
+    the plain loop (`engine.run_search_plain`, which shares no device code
+    with it): the smoke chunk, 2,048 reads on 1,024 lanes, as the main path
+    gives it.  Against the loop of the phased kernels
+    (`engine.run_search_phased`): the same chunk at ACAP 256 and 1024, and
+    the read inputs of the `bad`, `tail` and `all` cases of
+    `engine.switch_cases`.  Each with and without the step's rows asked
+    ahead: hit counts, fallback flags, the step count and the hits below
+    each count, bitwise.  Timed on the smoke chunk beside both loops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch.align import engine
+    cfg0, args0 = chunk["cfg"], chunk["args"]
+
+    def hold(name, cfg, args, n_lanes, want):
+        lens = args[1]
+        for mode in (1, 0):
+            out_h, nh, fb, counters = launch_chunk(cfg, fm, args, n_lanes,
+                                                   mode)
+            left, steps = counters.tolist()[:2]
+            got = (engine.masked_hits(out_h.permute(1, 2, 0), nh, fb), nh,
+                   fb.to(torch.int64))
+            ref = (engine.masked_hits(*want[:3]), want[1],
+                   want[2].to(torch.int64))
+            err = max_abs_err(got, ref)
+            if err or left != 0 or steps != want[3]:
+                bad_in = [n for n, g, w in zip(("hits", "n_hits", "fb"), got,
+                                               ref) if max_abs_err([g], [w])]
+                raise AssertionError(
+                    f"search_chunk case {name} mode={mode}: kernel != its "
+                    f"plain version in {bad_in} (max abs err {err}); steps "
+                    f"{steps} vs {want[3]}, reads left {left}")
+        return (f"{name} ({lens.shape[0]} reads, {n_lanes} lanes, steps "
+                f"{want[3]}, fallback {int(want[2].sum())})")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        want = engine.run_search_plain(cfg0, fm, *args0, n_lanes=B_LANES)
+        torch.cuda.synchronize()
+    plain_all = device_us(prof, 1)
+    seen = [hold("smoke against the plain loop", cfg0, args0, B_LANES, want),
+            hold("smoke", cfg0, args0, B_LANES, engine.run_search_phased(
+                cfg0, fm, *args0, n_lanes=B_LANES))]
+    for name in ("bad", "tail", "all"):
+        ch = switch_cases[name]
+        args = (args0[0][:ch.N].contiguous(), ch.lens, ch.max_diff0,
+                ch.has_seed, args0[4][:ch.N].contiguous(), ch.bad)
+        seen.append(hold(name, cfg0, args, B_LANES, engine.run_search_phased(
+            cfg0, fm, *args, n_lanes=B_LANES)))
+    cfg1k = dataclasses.replace(cfg0, acap=1024)
+    seen.append(hold("ACAP 1024", cfg1k, args0, B_LANES,
+                     engine.run_search_phased(cfg1k, fm, *args0,
+                                              n_lanes=B_LANES)))
+    log(f"search_chunk: n_hits, fb, steps and the hits below n_hits bitwise "
+        f"equal to the plain loop and to the phased kernels' loop, with and "
+        f"without the rows asked ahead, on {'; '.join(seen)}")
+
+    # ---- nothing in the call waits for the card: torch raises on any op
+    # that would, whatever the host's load
+    seqs, lens, md, hs, ssq, bad = args0
+    big = engine.big_planes(cfg0, fm, seqs, lens, hs, ssq)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    counters = engine.search_chunk(cfg0, fm, seqs, big, lens, md, hs, bad,
+                                   B_LANES)[3]
+    call_us = (time.perf_counter() - t0) * 1e6
+    torch.cuda.set_sync_debug_mode("default")
+    left, steps, longest, total, rows = counters.tolist()
+
+    # ---- times on the smoke chunk: the kernel, the phased kernels' loop,
+    # the plain loop
+    reps = 10
+    ms = time_search_chunk(cfg0, fm, args0, reps, 1)
+    ms_1k = time_search_chunk(cfg1k, fm, args0, 4, 1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            engine.run_search_phased(cfg0, fm, *args0, n_lanes=B_LANES)
+        torch.cuda.synchronize()
+    phased = {k: kernel_ms(prof, 2, k) for k in (
+        "lane_switch_kernel", "search_steps_kernel")}
+    plain_ms = sum(us for us, _ in plain_all.values()) / 1e3
+    plain_n = sum(n for _, n in plain_all.values())
+    # must move, from this run's counters: the FM rows the steps needed
+    # (the occ4 bounds' and the E-chain's); per lane iteration a read base
+    # and two meta words; per recorded hit its three words and one strand's
+    # w / bid / meta row in and out; per read its four scalars in and two
+    # out.  The arena never leaves the SM.  The operations are an estimate:
+    # per row its counts of four bases, per iteration the pass over the key
+    # row and some 400 integer operations of the step's own, which nothing
+    # in the run counts; the bytes' time is above theirs either way.
+    P = cfg0.L + cfg0.SL + 2
+    n = lens.shape[0]
+    hits = int(want[1][~want[2]].sum())
+    moved = (rows * 4 * (4 + fm.wpb) + total * (1 + 2 * 8)
+             + hits * (3 * 8 + 2 * 3 * P * 8) + n * (18 + 9))
+    ops = rows * fm.wpb * 4 * 6 + total * (400 + 4 * cfg0.acap)
+    b = bound(moved, ops)
+    phases = steps // engine.SWITCH_K
+    log(f"search_chunk N={n} B={B_LANES} ACAP={cfg0.acap}: device ms per "
+        f"launch {ms:.5f} (ACAP 1024: {ms_1k:.5f}); the call returned in "
+        f"{call_us:.0f} us and waited for nothing (sync debug mode); lanes' "
+        f"iterations: longest {longest}, mean {total / B_LANES:.1f}, all "
+        f"{total}, FM rows needed {rows}; "
+        f"{ms * 1e3 / longest:.4f} us per iteration of the longest lane; the "
+        f"phased kernels' loop of the same chunk, {phases} phases: "
+        f"lane_switch {phased['lane_switch_kernel']:.5f} + search_step "
+        f"{phased['search_steps_kernel']:.5f} ms; the plain loop "
+        f"{plain_ms:.5f} ms in {plain_n} launches; bound {b['bound_ms']:.5f} "
+        f"({b['bound_by']}, {moved} bytes, operations estimated)")
+    kernels.reset_launches()
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None,
+            "phased_kernels_ms": sum(phased.values()), "_longest": longest}
 
 
 def check_chase(tables: dict, dev) -> dict:
@@ -678,10 +842,13 @@ def run_aln(args: list[str], out: pathlib.Path) -> dict:
 
 
 def profile_chunk(fms, fm, chunk: dict) -> None:
-    """One warm 2,048-read chunk of the device search: bare wall, the
-    host's time in each of a phase's three calls, then under the profiler
-    its launches and device time by kind, beside the native search of the
-    same reads."""
+    """One warm 2,048-read chunk of the device search, as the engine runs
+    it (width pass, one `search_chunk` launch, one copy of the counters):
+    bare wall, then under the profiler its launches and device time by
+    kind; beside it, in the same process, the loop of the phased kernels on
+    the same chunk with the host clock around each of a phase's calls; the
+    step's prefetch on and off in turns; and the native search of the same
+    reads."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ibwa_tpu_torch import kernels
@@ -693,42 +860,55 @@ def profile_chunk(fms, fm, chunk: dict) -> None:
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, fb, steps = run()
+    hits, nh, fb, steps = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    phases = steps // engine.SWITCH_K
+    t0 = time.perf_counter()
+    for t in (hits, nh, fb):
+        t.cpu()
+    download = time.perf_counter() - t0
 
-    # the loop of run_search_persistent once more, by hand, with the host
-    # clock around each of a phase's calls
+    # the loop of the phased kernels, by hand, with the host clock around
+    # each of a phase's calls
     seqs, lens, max_diff0, has_seed, seed_seqs, bad = args
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ch = engine._Chunk(cfg, fm, engine.big_planes(cfg, fm, seqs, lens,
                                                   has_seed, seed_seqs),
                        lens, max_diff0, has_seed, bad, B_LANES)
-    torch.cuda.synchronize()
     host_s = {"switch": 0.0, "search_steps": 0.0, "sync": 0.0}
-    left = n
+    left, phases = n, 0
     while left > 0:
         t = [time.perf_counter()]
         ch.switch()
         t.append(time.perf_counter())
         ch.st = engine.search_steps(cfg, fm, seqs, ch.st, engine.SWITCH_K)
         t.append(time.perf_counter())
-        left, _ = ch.counters()
+        left, phased_steps = ch.counters()
         t.append(time.perf_counter())
         for i, name in enumerate(host_s):
             host_s[name] += t[i + 1] - t[i]
+        phases += 1
+    phased_wall = time.perf_counter() - t0
+    if phased_steps != steps:
+        raise AssertionError(f"steps: search_chunk {steps}, phased loop "
+                             f"{phased_steps}")
     host_us = {k: round(v / phases * 1e6, 1) for k, v in host_s.items()}
 
     kernels.reset_launches()
-    reps = 2
+    reps = 10   # a trace can drop a few of its first records (device_us)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             run()
             torch.cuda.synchronize()
     counts = {k: v // reps for k, v in kernels.launches.items()}
-    kinds = {"search_step": ("search_steps_kernel",),
+    if set(counts) != set(ALN_KERNELS) or any(
+            counts[k] != 1 for k in ALN_KERNELS):
+        raise AssertionError(f"a chunk is one launch of each of "
+                             f"{ALN_KERNELS}, not {counts}")
+    kinds = {"search_chunk": ("search_chunk_kernel",),
              "width_pass": ("width_pass_kernel",),
-             "lane_switch": ("lane_switch_kernel",),
+             "phased kernels": ("search_steps_kernel", "lane_switch_kernel"),
              "K2 occ": ("occ_pair_kernel",),
              "K1 stack_update": ("stack_update_kernel",),
              "torch index/gather/scatter": ("index", "gather", "scatter"),
@@ -743,11 +923,16 @@ def profile_chunk(fms, fm, chunk: dict) -> None:
         seen[kind] += launches
     n_launch = sum(seen.values())
     total_us = sum(dev_us.values())
-    if n_launch > MAX_LAUNCHES_PER_PHASE * phases:
+    if n_launch > MAX_LAUNCHES_PER_CHUNK:
         raise AssertionError(
-            f"{n_launch} launches in {phases} phases: more than "
-            f"{MAX_LAUNCHES_PER_PHASE} per phase, torch ops are back between "
-            f"a chunk's upload and its download ({counts})")
+            f"{n_launch} launches in a chunk, more than "
+            f"{MAX_LAUNCHES_PER_CHUNK}: torch ops are back between a chunk's "
+            f"upload and its download ({seen})")
+
+    # the step's prefetch: on, off, off, on, every launch on planes of its
+    # own
+    pf = [time_search_chunk(cfg, fm, args, 6, mode) for mode in (1, 0, 0, 1)]
+
     t0 = time.perf_counter()
     engine.native_align_batch(fms, chunk["seqs"], chunk["rseqs"],
                               chunk["opt"])
@@ -755,15 +940,18 @@ def profile_chunk(fms, fm, chunk: dict) -> None:
     shares = ", ".join(f"{k} {v / total_us:.4f}" for k, v in dev_us.items())
     per_launch = ", ".join(
         f"{k} {dev_us[k] / max(seen[k], 1):.1f}" for k in ALN_KERNELS)
-    log(f"chunk profile ({n} reads, warm): bare wall {wall:.4f} s for "
-        f"{steps} steps in {phases} phases = {wall / steps * 1e3:.4f} "
-        f"ms/step, {n / wall:.1f} reads/s; fallback {int(fb.sum())}; host "
-        f"us per phase in switch / search_steps / the sync: {host_us}; "
-        f"under the profiler, per run of two, {n_launch} launches = "
-        f"{n_launch / phases:.1f} per phase, of them {counts} (the profiler saw "
-        f"{ {k: seen[k] for k in ALN_KERNELS} }); device time "
-        f"{total_us / 1e6:.4f} s = {total_us / 1e6 / wall:.4f} of the bare "
-        f"wall; by kind: {shares}; us per launch: {per_launch}; native "
+    log(f"chunk profile ({n} reads, warm): bare wall {wall:.5f} s for "
+        f"{steps} steps of the phased loop's clock, {n / wall:.1f} reads/s, "
+        f"and {download:.5f} s to download hits, n_hits and fb; fallback "
+        f"{int(fb.sum())}; under the profiler, per run of ten, {n_launch} "
+        f"launches in the chunk, of them {counts} (the profiler saw {seen}); "
+        f"device time {total_us / 1e6:.5f} s = {total_us / 1e6 / wall:.4f} "
+        f"of the bare wall; by kind: {shares}; us per launch: {per_launch}; "
+        f"search_chunk device ms with the prefetch on / off / off / on: "
+        f"{' / '.join(f'{v:.5f}' for v in pf)}")
+    log(f"the phased kernels' loop on the same chunk: wall {phased_wall:.5f} "
+        f"s for {phases} phases ({n / phased_wall:.1f} reads/s), host us per "
+        f"phase in switch / search_steps / the sync: {host_us}; native "
         f"search of the same reads {native_s:.4f} s "
         f"({n / native_s:.0f} reads/s)")
 
@@ -824,17 +1012,28 @@ SOURCES = {
                    "ibwa_tpu/align/engine_jax.py:164"),
     "lane_switch": ("ibwa_tpu_torch/csrc/lane_switch.cu",
                     "ibwa_tpu/align/engine_jax.py:775"),
+    "search_chunk": ("ibwa_tpu_torch/csrc/search_chunk.cu",
+                     "ibwa_tpu/align/engine_jax.py:888"),
 }
 # kernels whose device code runs on the aln path as a stage of another
 # kernel's launch (their own entries stay, for the check and the plain
 # versions)
 WITHIN = {"stack_update": "search_step", "occ4_pair": "search_step",
-          "occ1_pair": "width_pass"}
-# the kernels a chunk of aln launches, and the most launches of any kind a
-# phase of it may average (switch, steps, the sync's copy, and the chunk's
-# allocations, uploads and downloads spread over its phases)
-ALN_KERNELS = ("width_pass", "lane_switch", "search_step")
-MAX_LAUNCHES_PER_PHASE = 12
+          "occ1_pair": "width_pass", "search_step": "search_chunk",
+          "lane_switch": "search_chunk"}
+# the kernels a chunk of aln launches, once each, and the most launches of
+# any kind (allocations, uploads, the counters' copy, downloads included) a
+# chunk may make between its upload and its download
+ALN_KERNELS = ("width_pass", "search_chunk")
+MAX_LAUNCHES_PER_CHUNK = 40
+
+
+def host_kernel(name: str) -> str:
+    """The kernel whose launches carry `name`'s device code on the aln
+    path: `name` itself, or the end of its chain in WITHIN."""
+    while name in WITHIN:
+        name = WITHIN[name]
+    return name
 
 
 def main() -> int:
@@ -882,8 +1081,10 @@ def main() -> int:
     chunk = smoke_chunk(fms, fq, dev)
     rows = {"stack_update": check_stack(dev), **check_occ(fm, dev),
             "width_pass": check_width_pass(fm, chunk),
-            "search_step": check_search_step(fm, chunk),
-            "lane_switch": check_lane_switch(fm, chunk)}
+            "search_step": check_search_step(fm, chunk)}
+    rows["lane_switch"], switch_cases = check_lane_switch(fm, chunk)
+    rows["search_chunk"] = check_search_chunk(fm, chunk, switch_cases)
+    del switch_cases
     tables = {label: bench_chase.make_table_device(n, w, SEED, dev)
               for label, n, w in PROBE_TABLES}
     rows.update(check_chase(tables, dev))
@@ -921,6 +1122,13 @@ def main() -> int:
         f"{longest * warp_us['b'] / 1e3:.5f} ms; search_step "
         f"{engine.SWITCH_K} steps x 1 to {engine.E_UNROLL} dependent fetches "
         f"{step_lat:.5f} to {engine.E_UNROLL * step_lat:.5f} ms")
+    # a chunk launch is as long as its slowest lane
+    lane = rows["search_chunk"].pop("_longest")
+    rows["search_chunk"]["latency_bound_ms"] = lane * warp_us["b"] / 1e3
+    log(f"search_chunk latency bound: the longest lane's {lane} iterations "
+        f"x 1 to {engine.E_UNROLL} dependent fetches "
+        f"{lane * warp_us['b'] / 1e3:.5f} to "
+        f"{engine.E_UNROLL * lane * warp_us['b'] / 1e3:.5f} ms")
 
     # ---- 4b. the walker
     kernels.reset_launches()
@@ -939,11 +1147,16 @@ def main() -> int:
         if set(counts) - set(ALN_KERNELS):
             raise AssertionError(f"the {path} path launched kernels that "
                                  f"are stages of others there: {counts}")
+    chunks = -(-N_READS // engine.PERSIST_N)
+    if aln_launches != dict.fromkeys(ALN_KERNELS, chunks):
+        raise AssertionError(f"device-only aln of {N_READS} reads is "
+                             f"{chunks} chunks, one launch of each kernel "
+                             f"per chunk, not {aln_launches}")
     profile_chunk(fms, fm, chunk)
     del fms, fm, chunk
     launches.update(aln_launches)
-    for name, host in WITHIN.items():
-        launches[name] = launches.get(host, 0)
+    for name in WITHIN:
+        launches[name] = launches.get(host_kernel(name), 0)
     for name in rows:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} never launched on its "

@@ -20,18 +20,28 @@ Port conventions:
   * JAX's dropped scatters (`mode="drop"` at row B/N) become masked
     writes to rows that exist; gathers whose index JAX would clamp for
     finished lanes are clamped here too.
-  * Between a chunk's upload and its download the main path runs three
+  * Between a chunk's upload and its download the main path runs two
     hand-written kernels, each with its plain version beside it, taken
-    for CPU tensors only: `big_planes` (the width pass, once per chunk:
-    `csrc/width_pass.cu`, whose occ query is K2's device code; plain
-    `big_planes_plain`, torch ops plus one occ1_pair per base), then per
-    phase `_Chunk.switch` (`csrc/lane_switch.cu`; plain `switch_plain`
-    with `_load_lanes`) and `search_steps` (`csrc/search_step.cu`, whose
-    stages 3 and 7 are K2's and K1's device code; plain `_search_step`,
-    torch ops plus occ4_pair / occ1_pair and stack_update).
-  * The persistent loop launches the SWITCH_K steps of a phase at once
-    and syncs with the host once per switch phase, never per step: one
-    copy of the two words (reads left, steps) the kernels keep.
+    for CPU tensors only: `big_planes` (the width pass: `csrc/width_pass.cu`,
+    whose occ query is K2's device code; plain `big_planes_plain`, torch
+    ops plus one occ1_pair per base) and `search_chunk`
+    (`csrc/search_chunk.cu`: every lane's whole life in one launch, its
+    arena in shared memory, its scalars in registers, the reads' planes
+    and output rows worked on in place; its step stage is
+    `csrc/search_step.cuh`, whose stages 3 and 7 are K2's and K1's device
+    code, its switch stage `csrc/lane_switch.cuh`).
+  * The plain version of `search_chunk` is the phased loop,
+    `run_search_phased`: every SWITCH_K steps a switch phase
+    (`_Chunk.switch`; plain `switch_plain` with `_load_lanes`), then
+    `search_steps` (plain `_search_step`, torch ops plus occ4_pair /
+    occ1_pair and stack_update), then one copy of the two words (reads
+    left, steps) to the host.  It is what CPU tensors run.  On CUDA tensors
+    the same loop is one `csrc/lane_switch.cu` and one `csrc/search_step.cu`
+    launch per phase: no path of `aln` takes it there, the card's check
+    holds `search_chunk` against it.
+  * The card's path does not sync with the host between the launch of
+    `search_chunk` and the download of its results; `chunk_steps` is the
+    arithmetic by which the kernel reproduces the phased loop's step count.
   * Still torch ops on the main path: the allocations and uploads of a
     chunk, the final stack / slice of its outputs; `_decode` is numpy on
     the host.
@@ -540,23 +550,56 @@ _STATE_DTYPES = {"has_seed": torch.bool, "done": torch.bool,
                  "sm1": torch.int32, "sm2": torch.int32, "key": torch.int32}
 
 
-class _StepArgs(ctypes.Structure):
-    """The launch arguments of `ibwa_search_steps`, field for field the
-    struct IbwaStepArgs of csrc/search_step.cu: the 30 state tensors, the
-    index, the reads, then shapes, the config and the engine's constants."""
+class _SearchCfg(ctypes.Structure):
+    """What both search kernels take beside their own tensors, field for
+    field the struct IbwaSearchCfg of csrc/search_step.cuh: the index, the
+    reads, then shapes, the config and the engine's constants."""
 
     _fields_ = (
-        [(name, ctypes.c_void_p) for name in FIELDS]
-        + [(name, ctypes.c_void_p)
-           for name in ("blocks", "primary", "L2", "l2diff", "seqs")]
+        [(name, ctypes.c_void_p)
+         for name in ("blocks", "primary", "L2", "l2diff", "seqs")]
         + [(name, ctypes.c_int64) for name in ("seq_len", "n_blk")]
         + [(name, ctypes.c_int) for name in (
-            "B", "n_reads", "n_steps", "intv", "L", "SL", "acap", "hcap",
+            "n_reads", "intv", "L", "SL", "acap", "hcap",
             "s_mm", "s_gapo", "s_gape", "max_gapo", "max_gape",
             "max_del_occ", "indel_end_skip", "max_top2", "max_entries",
             "max_seed_diff", "iter_cap", "gape_mode", "nonstop", "loggap",
             "max_seq", "e_unroll", "state_m", "state_i", "state_d",
             "state_e")])
+
+
+def _search_cfg(who: str, cfg: EngineConfig, fm: DeviceFmPair,
+                seqs: torch.Tensor) -> _SearchCfg:
+    """Check the index and the reads a search kernel is given and build
+    its `_SearchCfg`."""
+    if (seqs.device != fm.device or seqs.dtype != torch.uint8
+            or seqs.dim() != 3 or tuple(seqs.shape[1:]) != (2, cfg.L)
+            or seqs.shape[0] < 1 or not seqs.is_contiguous()):
+        raise ValueError(f"{who}: seqs must be a contiguous "
+                         f"uint8[N, 2, {cfg.L}] on {fm.device}")
+    if cfg.acap % 32 or cfg.acap < 32:
+        raise ValueError(f"{who}: ACAP={cfg.acap} must be a multiple "
+                         "of 32 (one warp per lane row)")
+    _check_index(fm)
+    return _SearchCfg(
+        blocks=fm.blocks.data_ptr(), primary=fm.primary.data_ptr(),
+        L2=fm.L2.data_ptr(), l2diff=fm.l2diff.data_ptr(),
+        seqs=seqs.data_ptr(), seq_len=fm.seq_len, n_blk=fm.n_blk,
+        n_reads=seqs.shape[0], intv=fm.intv, hcap=HCAP, max_seq=MAX_SEQ,
+        e_unroll=E_UNROLL, state_m=STATE_M, state_i=STATE_I,
+        state_d=STATE_D, state_e=STATE_E,
+        **{f.name: int(getattr(cfg, f.name))
+           for f in dataclasses.fields(cfg) if f.name != "NB"})
+
+
+class _StepArgs(ctypes.Structure):
+    """The launch arguments of `ibwa_search_steps`, field for field the
+    struct IbwaStepArgs of csrc/search_step.cu: the 30 state tensors, the
+    `_SearchCfg`, the lane and step counts."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in FIELDS]
+                + [("c", _SearchCfg), ("B", ctypes.c_int),
+                   ("n_steps", ctypes.c_int)])
 
 
 def _check_state(who: str, cfg: EngineConfig, st: SearchState, dev) -> int:
@@ -579,25 +622,9 @@ def _launch_search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs, st,
     """Check the tensors the kernel is given (it takes nothing else) and
     launch `ibwa_search_steps` on them; `st` is updated in place."""
     B = _check_state("search_steps", cfg, st, fm.device)
-    if (seqs.device != fm.device or seqs.dtype != torch.uint8
-            or seqs.dim() != 3 or tuple(seqs.shape[1:]) != (2, cfg.L)
-            or seqs.shape[0] < 1 or not seqs.is_contiguous()):
-        raise ValueError("search_steps: seqs must be a contiguous "
-                         f"uint8[N, 2, {cfg.L}] on {fm.device}")
-    if cfg.acap % 32:
-        raise ValueError(f"search_steps: ACAP={cfg.acap} must be a multiple "
-                         "of 32 (one warp per lane row)")
-    _check_index(fm)
     args = _StepArgs(
         **{name: getattr(st, name).data_ptr() for name in FIELDS},
-        blocks=fm.blocks.data_ptr(), primary=fm.primary.data_ptr(),
-        L2=fm.L2.data_ptr(), l2diff=fm.l2diff.data_ptr(),
-        seqs=seqs.data_ptr(), seq_len=fm.seq_len, n_blk=fm.n_blk,
-        B=B, n_reads=seqs.shape[0], n_steps=n_steps, intv=fm.intv,
-        hcap=HCAP, max_seq=MAX_SEQ, e_unroll=E_UNROLL, state_m=STATE_M,
-        state_i=STATE_I, state_d=STATE_D, state_e=STATE_E,
-        **{f.name: int(getattr(cfg, f.name))
-           for f in dataclasses.fields(cfg) if f.name != "NB"})
+        c=_search_cfg("search_steps", cfg, fm, seqs), B=B, n_steps=n_steps)
     rc = kernels.lib().ibwa_search_steps(ctypes.byref(args), stream)
     kernels.check(rc, "search_step")
     kernels.launches["search_step"] += 1
@@ -608,8 +635,9 @@ def search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
     """`n_steps` search steps of every lane.
 
     CPU tensors: `n_steps` calls of the plain `_search_step`.  CUDA
-    tensors: one launch of the kernel `csrc/search_step.cu`, which keeps a
-    lane's steps on the card and updates `st` in place; it expects what
+    tensors: one launch of the kernel `csrc/search_step.cu` (the step of
+    `csrc/search_step.cuh` on a lane state kept in global memory between
+    launches), which updates `st` in place; it expects what
     every state loaded or stepped by this module holds, `st.meta ==
     _pack_meta(st.w, st.bid)` and the pop fields of the lane's arena."""
     dev = fm.device
@@ -838,30 +866,201 @@ class _Chunk:
         kernels.launches["lane_switch"] += 1
 
 
-def run_search_persistent(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
-                          max_diff0, has_seed, seed_seqs, bad,
-                          n_lanes: int):
-    """Persistent-lane scheduler (engine_jax._run_search_persistent):
-    n_lanes lanes stream through the N reads of a chunk, lane b taking
-    reads b, b + B, ...; every SWITCH_K steps a switch phase flushes the
-    finished lanes' hits and loads their next read.
-
-    seqs uint8[N, 2, L], seed_seqs uint8[N, 2, SL], lens / max_diff0
-    int64[N], has_seed / bad bool[N], all on fm's device.  Returns (hits
-    int64[N, HCAP, 3] as (meta, k, l), n_hits int64[N], fb bool[N],
-    steps)."""
-    ch = _Chunk(cfg, fm, big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs),
+def _phased_loop(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, max_diff0,
+                 has_seed, seed_seqs, bad, n_lanes: int, plain: bool):
+    """The persistent search as a loop of phases (arguments and result as
+    `run_search_persistent`): a switch phase, SWITCH_K steps, one look at
+    the two counters.  `plain`: every stage in its plain version whatever
+    the device, else as the stage's entry point routes it."""
+    widths = big_planes_plain if plain else big_planes
+    ch = _Chunk(cfg, fm, widths(cfg, fm, seqs, lens, has_seed, seed_seqs),
                 lens, max_diff0, has_seed, bad, n_lanes)
     while True:
-        ch.switch()
-        ch.st = search_steps(cfg, fm, seqs, ch.st, SWITCH_K)
-        left, steps = ch.counters()  # sync
+        if plain:
+            ch.switch_plain()
+            for _ in range(SWITCH_K):
+                ch.st = _search_step(cfg, fm, seqs, ch.st)
+            left, steps = int(ch.remaining), int(ch.st.it)
+        else:
+            ch.switch()
+            ch.st = search_steps(cfg, fm, seqs, ch.st, SWITCH_K)
+            left, steps = ch.counters()  # sync
         if left <= 0 or steps >= MAX_ITERS * 8:
             break
     N = ch.N
     out_fb = ch.out_fb | (left > 0)  # iteration bound: all fall back
     hits = torch.stack(ch.out_h, dim=-1)[:N]
     return hits, ch.out_nh[:N], out_fb[:N], steps
+
+
+def run_search_phased(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
+                      max_diff0, has_seed, seed_seqs, bad, n_lanes: int):
+    """The persistent search as engine_jax._run_search_persistent runs it:
+    every SWITCH_K steps a switch phase flushes the finished lanes' hits
+    and loads their next read, then one sync with the host.  Arguments and
+    result as `run_search_persistent`; beyond `n_hits` a read's hit row
+    holds the stale words of its lane.  On CPU tensors this is the plain
+    version of `search_chunk`; on CUDA tensors every phase is one
+    `lane_switch` and one `search_steps` launch."""
+    return _phased_loop(cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs,
+                        bad, n_lanes, plain=False)
+
+
+def run_search_plain(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
+                     max_diff0, has_seed, seed_seqs, bad, n_lanes: int):
+    """Plain version of `search_chunk` with `big_planes_plain` before it,
+    on any device: the phased loop over the plain width pass, switch and
+    step.  What the kernels are held against on the card."""
+    return _phased_loop(cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs,
+                        bad, n_lanes, plain=True)
+
+
+def masked_hits(hits, n_hits, fb):
+    """The part of a search's hit planes that is its result: the rows of
+    the reads not routed to the host, below their hit count; the rest
+    zeroed.  hits int64[N, HCAP, 3]."""
+    keep = ((torch.arange(hits.shape[1], device=hits.device)[None, :]
+             < n_hits[:, None]) & ~fb[:, None])
+    return torch.where(keep[:, :, None], hits, 0)
+
+
+def chunk_steps(iters, bad, n_lanes: int, switch_k: int,
+                bound: int = MAX_ITERS * 8) -> int:
+    """The step count of the phased loop over a chunk, from each read's
+    own iterations: the arithmetic of `csrc/search_chunk.cu`'s clock.
+
+    iters int[N]: the iteration of read r (1-based, counted from its load)
+    in which its `done` / `fb` flag is set; bad bool[N]: reads that are
+    done when loaded (their `iters` is not read).  Lane b takes reads b,
+    b + n_lanes, ...; a read loaded at clock t is flushed by the first
+    switch that sees its flag, at t + switch_k * max(1, ceil(iters /
+    switch_k)), where the lane's next read is loaded.  The loop runs the
+    steps of the phase whose switch flushed the last read, and no phase
+    from `bound` steps on: a lane whose flush would fall there leaves the
+    loop to end at the bound."""
+    j = np.where(np.asarray(bad), 0, np.asarray(iters, dtype=np.int64))
+    phases = np.maximum(1, -(-j // switch_k))
+    pad = -len(j) % n_lanes
+    per_lane = np.concatenate([phases, np.zeros(pad, np.int64)]).reshape(
+        -1, n_lanes).sum(axis=0)
+    last_flush = int(per_lane.max()) * switch_k
+    t_end = -(-bound // switch_k) * switch_k
+    return t_end if last_flush >= t_end else last_flush + switch_k
+
+
+class _ChunkArgs(ctypes.Structure):
+    """The launch arguments of `ibwa_search_chunk`, field for field the
+    struct IbwaChunkArgs of csrc/search_chunk.cu: the chunk's outputs and
+    counters, the per-read arrays and planes, the `_SearchCfg`, the clock's
+    end and the lane, read and phase sizes."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "out_hm", "out_hk", "out_hl", "out_nh", "out_fb", "counters",
+            "read_lens", "read_max_diff", "read_has_seed", "read_bad",
+            "big_w", "big_bid", "big_meta")]
+        + [("c", _SearchCfg), ("t_end", ctypes.c_int64)]
+        + [(name, ctypes.c_int) for name in ("B", "N", "switch_k")])
+
+
+N_COUNTERS = 5   # search_chunk's counters, as its source lists them
+
+
+def _launch_search_chunk(cfg: EngineConfig, fm: DeviceFmPair, seqs, big,
+                         lens, max_diff0, has_seed, bad, n_lanes: int,
+                         stream: int, mode: int = 1):
+    """Check the tensors the kernel is given, allocate its outputs and
+    launch `ibwa_search_chunk` on them.  `mode` 1 is the step the engine
+    runs; 0 is the same step without the next pop's rows asked for ahead,
+    which only a measurement beside the other calls for."""
+    dev, N = fm.device, lens.shape[0]
+    P = cfg.L + cfg.SL + 2
+    out_h = torch.zeros(3, N, HCAP, dtype=I64, device=dev)   # hm, hk, hl
+    out_nh = torch.zeros(N, dtype=I64, device=dev)
+    out_fb = torch.zeros(N, dtype=torch.bool, device=dev)
+    counters = torch.zeros(N_COUNTERS, dtype=I64, device=dev)
+    counters[:1].fill_(N)   # on the card: an upload would wait for it
+    named = {
+        "out_hm": (out_h[0], I64, (N, HCAP)),
+        "out_hk": (out_h[1], I64, (N, HCAP)),
+        "out_hl": (out_h[2], I64, (N, HCAP)),
+        "out_nh": (out_nh, I64, (N,)),
+        "out_fb": (out_fb, torch.bool, (N,)),
+        "counters": (counters, I64, (N_COUNTERS,)),
+        "read_lens": (lens, I64, (N,)),
+        "read_max_diff": (max_diff0, I64, (N,)),
+        "read_has_seed": (has_seed, torch.bool, (N,)),
+        "read_bad": (bad, torch.bool, (N,)),
+        "big_w": (big[0], I64, (N, 2, P)),
+        "big_bid": (big[1], I64, (N, 2, P)),
+        "big_meta": (big[2], I64, (N, 2, P))}
+    for name, (t, dtype, shape) in named.items():
+        _check_tensor("search_chunk", name, t, dev, dtype, shape)
+    if n_lanes < 1 or seqs.shape[0] != N:
+        raise ValueError(f"search_chunk: {n_lanes} lanes, {N} reads, "
+                         f"{seqs.shape[0]} rows of bases")
+    args = _ChunkArgs(
+        **{name: t.data_ptr() for name, (t, _, _) in named.items()},
+        c=_search_cfg("search_chunk", cfg, fm, seqs),
+        t_end=-(-(MAX_ITERS * 8) // SWITCH_K) * SWITCH_K, B=n_lanes, N=N,
+        switch_k=SWITCH_K)
+    rc = kernels.lib().ibwa_search_chunk(ctypes.byref(args), mode, stream)
+    kernels.check(rc, "search_chunk")
+    kernels.launches["search_chunk"] += 1
+    return out_h, out_nh, out_fb, counters
+
+
+def search_chunk(cfg: EngineConfig, fm: DeviceFmPair, seqs, big, lens,
+                 max_diff0, has_seed, bad, n_lanes: int):
+    """The whole persistent search of a chunk over its width planes `big`
+    (`big_planes`), in ONE launch of the kernel `csrc/search_chunk.cu`:
+    CUDA tensors only (the plain version is the phased loop,
+    `run_search_phased`).  THE THREE PLANES OF `big` ARE UPDATED IN PLACE:
+    a lane works on its read's rows where they are, so a second search
+    needs them computed again.
+
+    Returns (out_h int64[3, N, HCAP] as (meta, k, l) planes, n_hits
+    int64[N], fb bool[N], counters int64[N_COUNTERS]), all on the card:
+    nothing here waits for the kernel.  Beyond `n_hits` a hit row is zero.
+    counters = reads left unflushed, steps, the longest lane's iterations,
+    all lanes' iterations, the FM rows their steps needed."""
+    dev = fm.device
+    if dev.type != "cuda":
+        raise ValueError(f"search_chunk: unsupported device {dev}")
+    return _launch_search_chunk(
+        cfg, fm, seqs, big, lens, max_diff0, has_seed, bad, n_lanes,
+        torch.cuda.current_stream(dev).cuda_stream)
+
+
+def run_search_persistent(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
+                          max_diff0, has_seed, seed_seqs, bad,
+                          n_lanes: int):
+    """Persistent-lane scheduler (engine_jax._run_search_persistent):
+    n_lanes lanes stream through the N reads of a chunk, lane b taking
+    reads b, b + B, ...; a lane whose read is done, or routed to the host
+    search, flushes its hits and loads its next read.
+
+    seqs uint8[N, 2, L], seed_seqs uint8[N, 2, SL], lens / max_diff0
+    int64[N], has_seed / bad bool[N], all on fm's device.  Returns (hits
+    int64[N, HCAP, 3] as (meta, k, l), n_hits int64[N], fb bool[N],
+    steps); `hits[r, n_hits[r]:]` is not part of the result.
+
+    CPU tensors: the phased loop, `run_search_phased`.  CUDA tensors:
+    `big_planes` (one launch), `search_chunk` (one launch), then one copy
+    of the counters to the host, the only sync."""
+    dev = fm.device
+    if dev.type == "cpu":
+        return run_search_phased(cfg, fm, seqs, lens, max_diff0, has_seed,
+                                 seed_seqs, bad, n_lanes)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    big = big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs)
+    out_h, n_hits, fb, counters = search_chunk(
+        cfg, fm, seqs, big, lens, max_diff0, has_seed, bad, n_lanes)
+    left, steps = counters.tolist()[:2]  # sync
+    if left > 0:  # iteration bound: all fall back
+        fb = torch.ones_like(fb)
+    return out_h.permute(1, 2, 0), n_hits, fb, steps
 
 
 def clone_state(st: SearchState) -> SearchState:

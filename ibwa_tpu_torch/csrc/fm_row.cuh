@@ -109,6 +109,39 @@ __device__ __forceinline__ uint32_t occ_count(const OccRow<WPB>& o,
   return v;
 }
 
+// occ(k, c) for all four bases c from k's fetched row, in one pass over its
+// text words: three popcounts a word (low bits, high bits, both set) instead
+// of one per base, the fourth count from the number of positions.  The same
+// values as four occ_count calls.
+template <int WPB>
+__device__ __forceinline__ void occ_count4(const OccRow<WPB>& o,
+                                           const uint32_t (&l2d)[4],
+                                           uint32_t (&cnt)[4]) {
+  const uint32_t nw = o.off >> 4;          // fully counted words
+  const uint32_t nb = (o.off & 15u) + 1u;  // bases counted in word nw
+  const uint32_t pm = ~((1u << ((16u - nb) * 2u)) - 1u) & 0x55555555u;
+  uint32_t n_lo = 0, n_hi = 0, n_both = 0;
+#pragma unroll
+  for (int j = 0; j < WPB; ++j) {
+    const uint32_t m = (uint32_t)j < nw    ? 0x55555555u
+                       : (uint32_t)j == nw ? pm
+                                           : 0u;
+    const uint32_t lo = o.r[4 + j] & m, hi = (o.r[4 + j] >> 1) & m;
+    n_lo += __popc(lo);
+    n_hi += __popc(hi);
+    n_both += __popc(lo & hi);
+  }
+  cnt[0] = o.r[0] + (o.off + 1u) - n_lo - n_hi + n_both;
+  cnt[1] = o.r[1] + n_lo - n_both;
+  cnt[2] = o.r[2] + n_hi - n_both;
+  cnt[3] = o.r[3] + n_both;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (o.neg) cnt[c] = 0;
+    if (o.full) cnt[c] = l2d[c];
+  }
+}
+
 }  // namespace ibwa_fm
 
 #endif  // IBWA_FM_ROW_CUH

@@ -12,12 +12,18 @@
 // lane gets its width rows, a whole key row, arena slots 0 and 1 and its
 // scalars (slots >= 2 of the payload planes and the hit rows keep their stale
 // words, as the plain switch leaves them), a parked lane only its flags and
-// its read index.
+// its read index.  On the main path a chunk runs in search_chunk.cu, whose
+// switch stage copies nothing (a lane works on its read's rows of the chunk's
+// planes and outputs where they are); this entry stays for the phased loop,
+// the plain version of that kernel's loop driven with kernels on the card.
+// What a read starts with is lane_switch.cuh, shared by both.
 //
 // Bound on an H100: bytes, and at the usual ~40 finishing lanes of 1,024 a
 // launch is launch-latency sized.  Per loaded lane 3 x 2 x P words in and
 // out, the key row out, and per flushed lane three hit rows in and out; the
-// case to time is the first switch of a chunk, where every lane loads.
+// case to time is the first switch of a chunk, where every lane loads.  In a
+// usual phase a finishing lane's copies are a chain of round trips that ~40
+// busy warps cannot hide: the reason the chunk kernel does without them.
 //
 // Design: one warp per lane, 4 lanes per block, the layout of
 // search_step.cu.  A lane's flags are the same in all 32 threads, so an
@@ -31,6 +37,8 @@
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "lane_switch.cuh"
 
 namespace {
 
@@ -96,23 +104,7 @@ struct IbwaSwitchArgs {
 
 namespace {
 
-// Warp-wide copy of n words, thread t on word t of each 32-word stretch.
-// Four stretches are loaded before the first is stored, so a row costs a
-// quarter of its stretches in dependent round trips to memory.
-__device__ __forceinline__ void copy_row(int64_t* __restrict__ dst,
-                                         const int64_t* __restrict__ src,
-                                         int n, int lane) {
-  int i = lane;
-  for (; i + 96 < n; i += 128) {
-    const int64_t v0 = src[i], v1 = src[i + 32], v2 = src[i + 64],
-                  v3 = src[i + 96];
-    dst[i] = v0;
-    dst[i + 32] = v1;
-    dst[i + 64] = v2;
-    dst[i + 96] = v3;
-  }
-  for (; i < n; i += 32) dst[i] = src[i];
-}
+using namespace ibwa_switch;
 
 __global__ void __launch_bounds__(kWarps * 32)
     lane_switch_kernel(const IbwaSwitchArgs a) {
@@ -146,22 +138,10 @@ __global__ void __launch_bounds__(kWarps * 32)
     copy_row(a.w + row * n2p, a.big_w + crid * n2p, (int)n2p, lane);
     copy_row(a.bid + row * n2p, a.big_bid + crid * n2p, (int)n2p, lane);
     copy_row(a.meta + row * n2p, a.big_meta + crid * n2p, (int)n2p, lane);
-    // an empty arena but for the two strand roots in slots 0 and 1 (pushed
-    // with seqno 0 and 1), the a = 1 root of slot 1 popped first
     const int64_t len = a.read_lens[crid];
-    int32_t* krow = a.key + row * a.acap;
-    for (int s = lane; s < a.acap; s += 32)
-      krow[s] = s < 2 ? a.max_seq - s : INT_MAX;
-    const uint32_t root1 = (uint32_t)a.state_m | (1u << 2) |
-                           ((uint32_t)len << 3);
-    if (lane < 2) {
-      const int64_t at = row * a.acap + lane;
-      a.sk[at] = 0;
-      a.sl[at] = (int32_t)(uint32_t)a.seq_len;
-      a.sm1[at] = (int32_t)((uint32_t)a.state_m | ((uint32_t)lane << 2) |
-                            ((uint32_t)len << 3));
-      a.sm2[at] = 0;
-    }
+    const int64_t at = row * a.acap;
+    root_arena(lane, a.key + at, a.sk + at, a.sl + at, a.sm1 + at, a.sm2 + at,
+               a.acap, len, a.seq_len, a.max_seq, a.state_m);
     if (lane == 0) {
       const int64_t md = a.read_max_diff[crid];
       a.lens[row] = len;
@@ -173,13 +153,12 @@ __global__ void __launch_bounds__(kWarps * 32)
       a.pkey[row] = a.max_seq - 1;
       a.pk[row] = 0;
       a.pl[row] = a.seq_len;
-      a.pm1[row] = (int64_t)root1;
+      a.pm1[row] = (int64_t)root_m1(a.state_m, 1u, len);
       a.pm2[row] = 0;
       a.lane_it[row] = 0;
       a.n_hits[row] = 0;
-      a.best_score[row] = (md + 1) * a.s_mm +
-                          (int64_t)(a.max_gapo + 1) * a.s_gapo +
-                          (int64_t)(a.max_gape + 1) * a.s_gape;
+      a.best_score[row] = start_best_score(md, a.s_mm, a.s_gapo, a.s_gape,
+                                           a.max_gapo, a.max_gape);
       a.best_cnt[row] = 0;
       a.done[row] = a.read_bad[crid];  // too many Ns: nothing to search
     }

@@ -1,6 +1,6 @@
 // The per-read arena stack update of one aln search step, as __device__
 // code for one warp: shared by the stand-alone kernel K1 (stack_update.cu)
-// and by stage 7 of the search step (search_step.cu).
+// and by stage 7 of the search step (search_step.cuh).
 //
 // It computes exactly what ibwa_tpu/align/stack_kernel.py::stack_update
 // (the Pallas kernel _kernel with _lane_cumsum) and its XLA twin compute,
@@ -13,22 +13,27 @@
 //   4. take the first-minimum argmin of the updated key row and return
 //      that slot's key and 4 entry words as the next step's pop.
 //
-// One warp owns one lane row, ACAP/32 slots per thread in 32-slot chunks
-// (slot = chunk * 32 + lane, so every key access is coalesced).  The
-// free-slot rank is a __ballot_sync + __popc prefix count per chunk plus
-// the running count of earlier chunks, so the whole update is ONE pass over
-// the key row; each thread keeps its own first minimum (its slots ascend)
-// and a lexicographic (key, slot) shuffle reduction gives the row's first
-// minimum.  The planes are updated in place: only the owner thread of a
-// slot ever reads or writes it, so no fence is needed beyond program order.
-// Where two valid children carry the same offset the later child wins, as
-// in the Pallas kernel's sequential j loop.
+// One warp owns one lane row, ACAP/32 slots per thread (slot = chunk * 32 +
+// lane, so every key access is coalesced, or conflict free in shared
+// memory).  What bounds it is not bytes but the chain of one warp's own
+// dependent operations, so the row is taken in groups of 8 chunks whose
+// loads, ballots and prefix counts are independent of one another and
+// overlap: the
+// free-slot rank is a __ballot_sync + __popc per chunk on top of the running
+// count of the chunks before; the placement (10 compares per free slot) runs
+// only in chunks that still have a child to take, which is the first chunk
+// or two; each thread keeps its own first minimum (its slots ascend) and two
+// warp reductions (redux.sync: the least key, then the least slot that holds
+// it) give the row's first minimum.  The planes are updated in place: only
+// the owner thread of a slot writes it; after a warp barrier every thread
+// reads the popped entry from the planes (one broadcast read each), so the
+// pop needs no shuffle.  Where two valid children carry the same offset the
+// later child wins, as in the Pallas kernel's sequential j loop.
 //
 // The ten children come in registers, the same values in every thread of
-// the warp.  `krow` is the key row the pass works on: the global row itself
-// (K1), or a copy in shared memory that lives across the steps of a launch
-// (search step), in which case every changed key also goes to `krow_g`, the
-// global row.
+// the warp.  `krow` is the key row the pass works on and sk .. sm2 the
+// payload rows: global memory (K1) or shared memory that holds the lane's
+// arena for as long as the lane lives (the search step).
 #ifndef IBWA_STACK_COMMIT_CUH
 #define IBWA_STACK_COMMIT_CUH
 
@@ -59,13 +64,23 @@ struct Pushed {
   int count;  // valid children that fit
 };
 
+constexpr int kGroup = 8;  // chunks of 32 slots taken together
+
 // All 32 threads of the warp call this together.  `slot0` is freed when
 // `act`.  sk/sl/sm1/sm2 point at the lane's rows of the payload planes.
+// `used` is the number of leading groups of the row that may hold entries
+// (every slot from used * 256 on is free): children fill the lowest free
+// slots, so a search keeps its entries at the low end of the row, and a
+// row of several groups (ACAP 1,024) is passed over only as far as its
+// entries and the children reach.  Pass the row's group count for a row of
+// unknown content; on return it is the count for the updated row.
 __device__ __forceinline__ Pushed stack_commit(
     int lane, bool act, int64_t slot0, const Children& ch, int32_t* krow,
-    int32_t* krow_g, int32_t* sk, int32_t* sl, int32_t* sm1, int32_t* sm2,
-    int acap, Pop& pop) {
+    int32_t* sk, int32_t* sl, int32_t* sm1, int32_t* sm2, int acap,
+    int& used, Pop& pop) {
   const unsigned lt = (1u << lane) - 1u;
+  __syncwarp();  // the pop every thread read from the planes at the end of
+                 // the last pass is read before its slot is written again
   int last_ofs = -1;  // no free slot of a higher rank takes a child
 #pragma unroll
   for (int j = 0; j < kNch; ++j)
@@ -73,84 +88,79 @@ __device__ __forceinline__ Pushed stack_commit(
   int n_free = 0;          // free slots in earlier chunks
   int32_t best = INT_MAX;  // this thread's first minimum
   int best_i = lane;
-  bool fresh = false;  // ... is a child placed just now, its entry here:
-  uint32_t bk = 0, bl = 0, bm1 = 0, bm2 = 0;
+  int used_now = 1;
 
-  for (int c0 = 0; c0 < acap; c0 += 32) {
-    const int s = c0 + lane;
-    int32_t kk = krow[s];
-    bool changed = false;
-    if (act && s == slot0) {
-      kk = INT_MAX;
-      changed = true;
-    }
-    const bool fr = kk == INT_MAX;
-    const unsigned m = __ballot_sync(kFullWarp, fr);
-    const int r = n_free + __popc(m & lt);  // 0-based free rank
-    bool placed = false;
-    uint32_t vk = 0, vl = 0, vm1 = 0, vm2 = 0;
-    if (fr && r <= last_ofs) {  // past the first chunks: no thread at all
+  int g0 = 0;
+  for (int g = 0; g0 < acap && (g < used || n_free <= last_ofs);
+       ++g, g0 += 32 * kGroup) {
+    int32_t kk[kGroup];
+    unsigned m[kGroup];
+    bool changed[kGroup];
 #pragma unroll
-      for (int j = 0; j < kNch; ++j)
-        if (((ch.valid >> j) & 1u) && ch.ofs[j] == r) {
-          placed = true;
-          kk = ch.key[j];
-          vk = ch.k[j];
-          vl = ch.l[j];
-          vm1 = ch.m1[j];
-          vm2 = ch.m2[j];
+    for (int u = 0; u < kGroup; ++u) {
+      const int s = g0 + 32 * u + lane;
+      kk[u] = s < acap ? krow[s] : INT_MAX;
+      changed[u] = act && s == slot0;
+      if (changed[u]) kk[u] = INT_MAX;
+    }
+    unsigned all_free = kFullWarp;
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      m[u] = __ballot_sync(kFullWarp, kk[u] == INT_MAX);
+      all_free &= m[u];
+    }
+    // entries in this group after the step: some before it, or a child now
+    if (n_free <= last_ofs || all_free != kFullWarp) used_now = g + 1;
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int s = g0 + 32 * u + lane;
+      if (s - lane >= acap) m[u] = 0u;   // past the row: no slot at all
+      if (n_free <= last_ofs) {  // uniform: a child is still to be placed
+        const int r = n_free + __popc(m[u] & lt);  // 0-based free rank
+        if (((m[u] >> lane) & 1u) && r <= last_ofs) {
+          bool placed = false;
+          uint32_t vk = 0, vl = 0, vm1 = 0, vm2 = 0;
+#pragma unroll
+          for (int j = 0; j < kNch; ++j)
+            if (((ch.valid >> j) & 1u) && ch.ofs[j] == r) {
+              placed = true;
+              kk[u] = ch.key[j];
+              vk = ch.k[j];
+              vl = ch.l[j];
+              vm1 = ch.m1[j];
+              vm2 = ch.m2[j];
+            }
+          if (placed) {
+            changed[u] = true;
+            sk[s] = (int32_t)vk;
+            sl[s] = (int32_t)vl;
+            sm1[s] = (int32_t)vm1;
+            sm2[s] = (int32_t)vm2;
+          }
         }
-      if (placed) {
-        changed = true;
-        sk[s] = (int32_t)vk;
-        sl[s] = (int32_t)vl;
-        sm1[s] = (int32_t)vm1;
-        sm2[s] = (int32_t)vm2;
+      }
+      n_free += __popc(m[u]);
+      if (changed[u]) krow[s] = kk[u];
+      if (kk[u] < best) {
+        best = kk[u];
+        best_i = s;
       }
     }
-    if (changed) {
-      krow[s] = kk;
-      if (krow_g != krow) krow_g[s] = kk;
-    }
-    n_free += __popc(m);
-    if (kk < best) {
-      best = kk;
-      best_i = s;
-      fresh = placed;
-      bk = vk;
-      bl = vl;
-      bm1 = vm1;
-      bm2 = vm2;
-    }
   }
+  if (g0 < acap) n_free += acap - g0;  // the rest of the row is free
+  used = used_now;
 
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int32_t ok = __shfl_xor_sync(kFullWarp, best, off);
-    const int oi = __shfl_xor_sync(kFullWarp, best_i, off);
-    if (ok < best || (ok == best && oi < best_i)) {
-      best = ok;
-      best_i = oi;
-    }
-  }
-
-  // the owner thread of the popped slot hands its entry to the warp: from
-  // its registers when the pop is a child of this step (the usual case,
-  // the search being depth first), else read back from the planes, which
-  // only this thread has written at that slot
-  const int owner = best_i & 31;
-  if (lane == owner && !fresh) {
-    bk = (uint32_t)sk[best_i];
-    bl = (uint32_t)sl[best_i];
-    bm1 = (uint32_t)sm1[best_i];
-    bm2 = (uint32_t)sm2[best_i];
-  }
-  pop.slot = best_i;
-  pop.key = best;
-  pop.k = __shfl_sync(kFullWarp, bk, owner);
-  pop.l = __shfl_sync(kFullWarp, bl, owner);
-  pop.m1 = __shfl_sync(kFullWarp, bm1, owner);
-  pop.m2 = __shfl_sync(kFullWarp, bm2, owner);
+  // the row's first minimum: the least key, then the least slot holding it
+  const int32_t kmin = __reduce_min_sync(kFullWarp, best);
+  const int slot = __reduce_min_sync(kFullWarp, best == kmin ? best_i
+                                                             : INT_MAX);
+  __syncwarp();  // the owner's writes of this step are seen by every thread
+  pop.slot = slot;
+  pop.key = kmin;
+  pop.k = (uint32_t)sk[slot];
+  pop.l = (uint32_t)sl[slot];
+  pop.m1 = (uint32_t)sm1[slot];
+  pop.m2 = (uint32_t)sm2[slot];
 
   Pushed out = {false, 0};
 #pragma unroll

@@ -6,7 +6,7 @@
 // slot, rank the free slots, place <= 10 children, first-minimum argmin and
 // the next pop's entry) is the __device__ function stack_commit of
 // stack_commit.cuh, which says what it computes and how; stage 7 of the
-// search step (search_step.cu) calls the same function with the children in
+// search step (search_step.cuh) calls the same function with the children in
 // registers, and that is where the aln path runs it.  This kernel is the
 // thin wrapper that reads one step's children from tensors, one warp per
 // lane row, and writes the pop back: it serves the plain search step's
@@ -61,9 +61,10 @@ __global__ void stack_update_kernel(
   }
   const int64_t base = row * (int64_t)acap;
   Pop pop;
+  int used = acap;  // a row of unknown content: the whole of it
   const Pushed pushed =
-      stack_commit(lane, act[row], slot0[row], ch, key + base, key + base,
-                   sk + base, sl + base, sm1 + base, sm2 + base, acap, pop);
+      stack_commit(lane, act[row], slot0[row], ch, key + base, sk + base,
+                   sl + base, sm1 + base, sm2 + base, acap, used, pop);
   if (lane == 0) {
     pslot[row] = pop.slot;
     pkey[row] = pop.key;

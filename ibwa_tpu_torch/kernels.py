@@ -64,6 +64,8 @@ _SIGNATURES = {
     "ibwa_width_pass": [_P] * 11 + [_I, _I, _I, _L, _L, _I, _P],
     # the argument struct (align/engine.py::_SwitchArgs), stream
     "ibwa_lane_switch": [_P, _P],
+    # the argument struct (align/engine.py::_ChunkArgs), prefetch, stream
+    "ibwa_search_chunk": [_P, _I, _P],
 }
 
 

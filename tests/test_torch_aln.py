@@ -1,9 +1,9 @@
 """The port's `aln` slice end to end on the CPU: `ibwa_tpu_torch aln
 --device cpu` writes a .sai byte-equal to ibwa_tpu's `aln` with the JAX
 engine, for single-end reads and for both ends of paired-end reads, and
-the port's whole path (`index`, `aln` through `search_steps`, the SA
-walker) runs in a process where neither jax nor the JAX package can be
-imported."""
+the port's whole path (`index`, `aln` through `run_search_persistent`,
+which on CPU tensors is the phased loop over `search_steps`, the SA walker)
+runs in a process where neither jax nor the JAX package can be imported."""
 
 import os
 import random
@@ -136,7 +136,10 @@ def test_aln_sai_byte_equal_to_jax_paired_end(pe_inputs, tmp_path,
 
 def test_port_never_imports_jax(aln_inputs, tmp_path):
     """Import the port and run its `index`, its `aln` (which must go
-    through `engine.search_steps`) and one `DeviceWalker.resolve` with
+    through `engine.run_search_persistent`: on CUDA tensors that call is
+    the `search_chunk` launch, on the CPU tensors here its plain version,
+    the phased loop over `engine.search_steps`) and one
+    `DeviceWalker.resolve` with
     `jax`, `ibwa_tpu` and `bench` blocked: any import of one of them (or of
     a module that imports one) fails the run."""
     fa, fq, want = aln_inputs
@@ -160,6 +163,9 @@ def test_port_never_imports_jax(aln_inputs, tmp_path):
         "calls, steps = [], engine.search_steps\n"
         "engine.search_steps = lambda *a: (calls.append(a[-1]), "
         "steps(*a))[1]\n"
+        "chunks, run = [], engine.run_search_persistent\n"
+        "engine.run_search_persistent = lambda *a, **k: "
+        "(chunks.append(k['n_lanes']), run(*a, **k))[1]\n"
         "from ibwa_tpu_torch import cli\n"
         f"rc = cli.main(['index', '-p', {str(prefix)!r}, {str(fa)!r}])\n"
         "assert rc == 0, rc\n"
@@ -167,6 +173,7 @@ def test_port_never_imports_jax(aln_inputs, tmp_path):
         f"{str(fq)!r}, '-f', {str(out)!r}])\n"
         f"fms = [FmIndex(load_index({str(prefix)!r}, s)) for s in (0, 1)]\n"
         "assert calls and set(calls) == {engine.SWITCH_K}, calls\n"
+        f"assert chunks == [{LANES}], chunks\n"
         "rows = np.arange(0, fms[0].seq_len + 1, 97, dtype=np.uint32)\n"
         "strand = (np.arange(len(rows)) % 2).astype(np.uint32)\n"
         "got = DeviceWalker(fms[0], fms[1], 'cpu').resolve(strand, rows)\n"
