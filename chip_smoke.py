@@ -40,29 +40,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         64,000,000 x 8 words (2 GB: a human-scale block table)
      b. the SA walker: `DeviceWalker.resolve` on 2,097,152 random
         (strand, row) pairs of the smoke index, equal to the native
-        host `sa_lookup`
+        host `sa_lookup` (K5's launches on its path are sampe's, 4d)
      c. `aln`: a 32 Mbp repeat-structured genome (indexed by the port's
         `index` and cached under .bench/smoke/), 16,384 simulated 100 bp
-        reads; `ibwa_tpu_torch aln` device-only (IBWA_HOST_FRAC=0), then
-        hybrid; each .sai must be byte-identical to `--engine native`;
-        both must launch width_pass and search_chunk and no other kernel;
-        then the profile of one warm 2,048-read chunk (bare wall,
+        reads; `ibwa_tpu_torch aln` native, device-only (IBWA_HOST_FRAC=0)
+        and hybrid, three rounds in turns, each rate as its median and
+        range; in every round each device .sai must be byte-identical to
+        `--engine native`, and both device paths must launch width_pass
+        and search_chunk and no other kernel, device-only one of each per
+        chunk; then the profile of one warm 2,048-read chunk (bare wall,
         launches, device busy share, device time by kind, the lanes'
         iterations) beside the loop of the phased kernels on the same
         chunk, and the prefetch of the step on and off
+     d. 131,072 pairs of 100 bp from the smoke genome: one whole aln batch
+        (both ends, 262,144 reads, 128 chunks) device-only through
+        `TorchAlnEngine.align_batch`, every chunk launched under sync debug
+        mode "error" before the first is read back, with its peak device
+        memory, in turns with the one-by-one order (hits equal); then
+        `aln --device cuda` on each end, `sampe -R` with K5 walking the SA
+        rows on the card and with `--engine native` (host walks) on all
+        the pairs, SAM byte-equal, the device run traced, launching
+        lf_walk and nothing else and leaving no row to the host walks;
+        the rates on the first 32,768 pairs, three rounds of the two in
+        turns, untraced, SAM byte-equal in every round; and `samse` on
+        end 1, one line per read
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
      whose launches they carry.
   5. the result lines: the card, the kernel table, and the contract line
 
+Every line of the log after the card is known names the card and its power
+limit.
+
 `bound_ms` of the kernel table is the least time the card could take for
 the call: the larger of the bytes the call must move over 3.35 TB/s and
 its integer operations over 67 Tops/s (the card's non-tensor-core rate);
-for the data-dependent kernels it counts the rows this run fetched.  The
-chained kernels (chase, lf_walk, search_step, search_chunk, width_pass)
-also get a latency bound: their dependent fetches times the one-warp step
-the probe measured.
+for the data-dependent kernels it counts the rows this run fetched (for
+lf_walk each distinct table row once, `walk_footprint`).  The chained
+kernels (chase, lf_walk, search_step, search_chunk, width_pass) also get a
+latency bound: their dependent fetches times the one-warp step the probe
+measured.
 """
 
 from __future__ import annotations
@@ -78,6 +96,7 @@ import os
 import pathlib
 import random
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -85,6 +104,9 @@ import time
 SEED = 20261016
 N_READS = 16384
 READ_LEN = 100
+N_PAIRS = 131_072               # half of one sampe batch (sampe.BATCH)
+RATE_PAIRS = 32_768             # the pairs sampe's rates are read on
+ROUNDS = 3                      # of every host-clock rate, in turns
 B_LANES = 1024
 WALK_PAIRS = 2_097_152          # 16 dispatches of the walker
 PROBE_STEPS, PROBE_DELTA = 256, 2048
@@ -98,8 +120,22 @@ REPO = pathlib.Path(__file__).resolve().parent
 WORK = REPO / ".bench" / "smoke"
 
 
+CARD = ""   # the card's name and power limit, as nvidia-smi gives them
+
+
 def log(msg: str) -> None:
-    print(f"[smoke] {msg}", flush=True)
+    """A line of the log; once the card is known, every line names it and
+    its power limit beside the numbers it carries."""
+    print(f"[smoke{' ' + CARD if CARD else ''}] {msg}", flush=True)
+
+
+def spread(values) -> str:
+    """Median and range of repeated readings: one reading of a host-clock
+    rate proves nothing on a machine whose host clock moves between
+    calls."""
+    v = sorted(values)
+    return (f"median {statistics.median(v):.1f} (min {v[0]:.1f}, max "
+            f"{v[-1]:.1f}, {len(v)} readings)")
 
 
 def device_us(prof, reps: int) -> dict:
@@ -688,6 +724,48 @@ def walk_edges(fms) -> tuple:
     return strand, rows
 
 
+def walk_footprint(fm, calls, mask: int, lanes: int) -> dict:
+    """What the LF walks of `calls` (a list of (strand, rows) int64
+    tensors on fm's device, each cut into dispatches of `lanes`) must
+    fetch, found by the plain step on the card: their LF steps, the
+    distinct table rows they read (each must come from memory at least
+    once, and need not come more than once), and the sum over dispatches
+    of each one's longest walk (a dispatch lasts at least its longest
+    chain of dependent fetches)."""
+    import torch
+    from ibwa_tpu_torch.fm import walk
+    seen = torch.zeros(fm.blocks.shape[0], dtype=torch.bool,
+                       device=fm.device)
+    shift = fm.intv.bit_length() - 1
+    steps = chain = 0
+    for strand, k in calls:
+        add = torch.zeros_like(k)
+        active = (k & mask) != 0
+        while bool(active.any()):
+            # the row lf_step_plain reads (device._gather_block)
+            ka = torch.clamp(k - (k > fm.primary[strand]).to(torch.int64),
+                             max=fm.seq_len - 1)
+            row = strand * fm.n_blk + torch.clamp(ka >> shift,
+                                                  max=fm.n_blk - 1)
+            seen[row[active]] = True
+            k = torch.where(active, walk.lf_step_plain(fm, strand, k), k)
+            add += active.to(torch.int64)
+            active &= (k & mask) != 0
+        steps += int(add.sum())
+        chain += sum(int(add[lo:lo + lanes].max())
+                     for lo in range(0, len(add), lanes))
+    return {"steps": steps, "rows": int(seen.sum()), "chain": chain,
+            "row_bytes": fm.blocks.shape[1] * fm.blocks.element_size()}
+
+
+def walk_bound(n: int, fp: dict, wpb: int) -> dict:
+    """K5's bound on n lanes: each lane's strand and row read and its
+    (steps, row) written as u32, each distinct table row fetched once;
+    ~6 integer operations per word of a row and ~20 more per step."""
+    return bound(16 * n + fp["rows"] * fp["row_bytes"],
+                 fp["steps"] * (6 * wpb + 20))
+
+
 def check_walk(fms, dev) -> dict:
     """K5 against lf_walk_plain, bitwise on (add, kfin), for 131,072 random
     (strand, row) pairs plus the edge rows, at block intervals 32, 64 and
@@ -718,17 +796,20 @@ def check_walk(fms, dev) -> dict:
             ms, call_ms = timed_ms(lambda: walk.lf_walk(fm, ts, tk, mask), 20)
             plain_ms, _ = timed_ms(
                 lambda: walk.lf_walk_plain(fm, ts, tk, mask), 2)
+            fp = walk_footprint(fm, [(ts, tk)], mask, len(rows))
             steps = int(got[0].sum())
-            # must move: the queries, one row per step taken, 2 outputs
-            moved = 4 * 8 * len(rows) + steps * 4 * (4 + fm.wpb)
+            if fp["steps"] != steps or fp["chain"] != int(got[0].max()):
+                raise AssertionError(f"walk_footprint {fp} against the "
+                                     f"kernel's {steps} steps")
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   **bound(moved, steps * (6 * fm.wpb + 20)),
+                   **walk_bound(len(rows), fp, fm.wpb),
                    "library_ms": None, "_longest": int(got[0].max())}
             log(f"K5 lf_walk n={len(rows)} intv=64: bitwise equal; {steps} "
-                f"steps in all, longest walk {int(got[0].max())}; device "
-                f"ms/call kernel {ms:.5f}, plain {plain_ms:.5f}; call ms "
-                f"kernel {call_ms:.5f}; bound {row['bound_ms']:.5f} "
-                f"({row['bound_by']})")
+                f"steps in all, {fp['rows']} distinct table rows of "
+                f"{fm.blocks.shape[0]} read, longest walk "
+                f"{int(got[0].max())}; device ms/call kernel {ms:.5f}, plain "
+                f"{plain_ms:.5f}; call ms kernel {call_ms:.5f}; bound "
+                f"{row['bound_ms']:.5f} ({row['bound_by']})")
         else:
             log(f"K5 lf_walk n={len(rows)} intv={intv}: bitwise equal")
         del fm
@@ -821,25 +902,31 @@ def make_inputs() -> tuple[pathlib.Path, pathlib.Path]:
     return fa, fq
 
 
-def run_aln(args: list[str], out: pathlib.Path) -> dict:
-    """`ibwa_tpu_torch aln ... -f out` in-process; returns its stats line
-    plus the wall seconds of the whole command."""
+def run_cli(cmd: str, args: list[str], out: pathlib.Path
+            ) -> tuple[float, str]:
+    """`ibwa_tpu_torch <cmd> ... -f out` in-process, as a user calls it:
+    (wall seconds of the whole command, its stderr)."""
     from ibwa_tpu_torch import cli
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
-        rc = cli.main(["aln", *args, "-f", str(out)])
+        rc = cli.main([cmd, *args, "-f", str(out)])
     wall = time.perf_counter() - t0
     if rc != 0:
-        raise AssertionError(f"aln {args} exited {rc}:\n{err.getvalue()}")
-    lines = [ln for ln in err.getvalue().splitlines()
-             if ln.startswith("[aln] stats ")]
+        raise AssertionError(f"{cmd} {args} exited {rc}:\n{err.getvalue()}")
+    return wall, err.getvalue()
+
+
+def run_aln(args: list[str], out: pathlib.Path) -> dict:
+    """`ibwa_tpu_torch aln ... -f out` in-process; returns its stats line
+    plus the wall seconds of the whole command."""
+    wall, err = run_cli("aln", args, out)
+    lines = [ln for ln in err.splitlines() if ln.startswith("[aln] stats ")]
     if not lines:
-        raise AssertionError(f"aln printed no stats:\n{err.getvalue()}")
+        raise AssertionError(f"aln printed no stats:\n{err}")
     stats = json.loads(lines[-1][len("[aln] stats "):])
     stats["wall_s"] = wall
     return stats
-
 
 def profile_chunk(fms, fm, chunk: dict) -> None:
     """One warm 2,048-read chunk of the device search, as the engine runs
@@ -957,44 +1044,349 @@ def profile_chunk(fms, fm, chunk: dict) -> None:
 
 
 def run_aln_paths(fa, fq) -> tuple[dict, dict]:
-    """`aln` native, device-only and hybrid; the two device .sai must be
-    byte-identical to the native one.  Returns the launch counts of the
-    device-only and the hybrid run."""
+    """`aln` native, device-only and hybrid, ROUNDS rounds of the three in
+    turns (the order reversed every other round); in every round both
+    device .sai must be byte-identical to the native one, and the
+    device-only run's launches, steps and fallback the same.  Returns the
+    launch counts of the device-only and the hybrid runs."""
     from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.io import sai
-    sais = {name: WORK / f"{name}.sai"
-            for name in ("native", "device_only", "hybrid")}
-    base = [str(fa), str(fq)]
-    res = {"native": run_aln(base + ["--engine", "native"], sais["native"])}
-    os.environ["IBWA_HOST_FRAC"] = "0"
-    kernels.reset_launches()
-    res["device_only"] = run_aln(base + ["--device", "cuda"],
-                                 sais["device_only"])
-    launches = dict(kernels.launches)
-    del os.environ["IBWA_HOST_FRAC"]
-    kernels.reset_launches()
-    res["hybrid"] = run_aln(base + ["--device", "cuda"], sais["hybrid"])
-    hybrid_launches = dict(kernels.launches)
-    want = sais["native"].read_bytes()
-    for name in ("device_only", "hybrid"):
-        if sais[name].read_bytes() != want:
-            raise AssertionError(f"{name} .sai differs from --engine native")
+    names = ("native", "device_only", "hybrid")
+    args = {"native": ["--engine", "native"], "device_only":
+            ["--device", "cuda"], "hybrid": ["--device", "cuda"]}
+    sais = {name: WORK / f"{name}.sai" for name in names}
+    res = {name: [] for name in names}
+    launches = {}
+    for r in range(ROUNDS):
+        for name in names if r % 2 == 0 else names[::-1]:
+            if name == "device_only":
+                os.environ["IBWA_HOST_FRAC"] = "0"
+            kernels.reset_launches()
+            try:
+                res[name].append(run_aln([str(fa), str(fq), *args[name]],
+                                         sais[name]))
+            finally:
+                os.environ.pop("IBWA_HOST_FRAC", None)
+            got = dict(kernels.launches)
+            if name != "native" and launches.setdefault(name, got) != got:
+                raise AssertionError(f"aln {name} round {r} launched {got}, "
+                                     f"round 0 {launches[name]}")
+        want = sais["native"].read_bytes()
+        for name in names[1:]:
+            if sais[name].read_bytes() != want:
+                raise AssertionError(f"round {r}: {name} .sai differs from "
+                                     f"--engine native")
+    counters = {(r["device_reads"], r["fallback_reads"], r["iterations"])
+                for r in res["device_only"]}
+    if len(counters) != 1:
+        raise AssertionError(f"device-only reads / fallback / steps differ "
+                             f"between rounds: {counters}")
     n_hit = sum(1 for hits in sai.iter_sai(str(sais["native"])) if hits)
     if not N_READS * 0.9 <= n_hit <= N_READS:
         raise AssertionError(f"only {n_hit}/{N_READS} reads have hits")
-    for name, r in res.items():
+    for name, runs in res.items():
+        r = runs[0]
         dev_reads = r.get("device_reads", 0)
-        log(f"aln {name}: {r['reads'] / r['search_s']:.1f} reads/s search "
-            f"({r['search_s']:.3f} s), {r['reads'] / r['wall_s']:.1f} "
-            f"reads/s end to end ({r['wall_s']:.3f} s); device reads "
-            f"{dev_reads}, overflow fallback {r.get('fallback_reads', 0)} "
-            f"({r.get('fallback_reads', 0) / max(dev_reads + r.get('fallback_reads', 0), 1):.4f}), "
-            f"host share {r.get('host_reads', 0)}, steps "
-            f"{r.get('iterations', 0)}")
-    log(f".sai byte-identical to --engine native (device-only, hybrid); "
-        f"{n_hit}/{N_READS} reads with hits; launches device-only "
-        f"{launches}, hybrid {hybrid_launches}")
-    return launches, hybrid_launches
+        fb = r.get("fallback_reads", 0)
+        log(f"aln {name}, {ROUNDS} rounds: reads/s of search wall "
+            f"{spread([x['reads'] / x['search_s'] for x in runs])}; end to "
+            f"end {spread([x['reads'] / x['wall_s'] for x in runs])}; device "
+            f"reads {dev_reads}, overflow fallback {fb} "
+            f"({fb / max(dev_reads + fb, 1):.4f}), host share "
+            f"{r.get('host_reads', 0)}, steps {r.get('iterations', 0)}")
+    log(f".sai byte-identical to --engine native (device-only, hybrid) in "
+        f"each of {ROUNDS} rounds; {n_hit}/{N_READS} reads with hits; "
+        f"launches device-only {launches['device_only']}, hybrid "
+        f"{launches['hybrid']}")
+    return launches["device_only"], launches["hybrid"]
+
+
+def make_pairs(fa) -> tuple[pathlib.Path, pathlib.Path]:
+    """N_PAIRS pairs of READ_LEN bp from the smoke genome, made as
+    bench.py makes its sampe pairs (insert gauss(320, 40), at least
+    2 x READ_LEN + 10; 1% substitutions by a random base; mate 1 forward,
+    mate 2 reverse-complemented), from SEED + 2 with numpy; cached under
+    .bench/smoke/."""
+    import numpy as np
+    fqs = tuple(WORK / f"pairs_{SEED + 2}_{N_PAIRS}_{e}.fq" for e in (1, 2))
+    if all(fq.exists() for fq in fqs):
+        return fqs
+    t0 = time.perf_counter()
+    with open(fa, "rb") as f:
+        f.readline()
+        genome = np.frombuffer(f.read().replace(b"\n", b""), dtype=np.uint8)
+    rng = np.random.default_rng(SEED + 2)
+    isz = np.maximum(2 * READ_LEN + 10,
+                     rng.normal(320, 40, N_PAIRS).astype(np.int64))
+    pos = (rng.random(N_PAIRS) * (len(genome) - isz)).astype(np.int64)
+    col = np.arange(READ_LEN)
+    comp = np.zeros(256, dtype=np.uint8)
+    for a, b in zip(b"ACGTN", b"TGCAN"):
+        comp[a] = b
+    mates = (genome[pos[:, None] + col],
+             comp[genome[(pos + isz - 1)[:, None] - col]])
+    qual = b"+\n" + b"I" * READ_LEN + b"\n"
+    for fq, mate in zip(fqs, mates):
+        sub = rng.random(mate.shape) < 0.01
+        mate[sub] = np.frombuffer(b"ACGT", dtype=np.uint8)[
+            rng.integers(0, 4, int(sub.sum()))]
+        with open(fq, "wb") as f:
+            f.write(b"".join(b"@p%d\n%s\n%s" % (i, row.tobytes(), qual)
+                             for i, row in enumerate(mate)))
+    log(f"{N_PAIRS} pairs made in {time.perf_counter() - t0:.1f} s")
+    return fqs
+
+
+def check_dispatch_ahead(fms, fqs, dev) -> None:
+    """Fault C1 on the card: one whole aln batch (pipeline.BATCH_SIZE
+    reads: both ends of the pairs) device-only through
+    `TorchAlnEngine.align_batch`.  Every chunk's `launch_search` runs under
+    sync debug mode "error" (torch raises on any wait for the card), and
+    all of them come before the first `collect_search`; the peak of device
+    memory the batch takes.  Then, in turns with it (ahead, one by one,
+    one by one, ahead), the same batch with each chunk waited for as soon
+    as it is launched, the order before the repair: the hits must be the
+    same; the wall from the first launch to the last read-back of the
+    counters, and of the whole call."""
+    import torch
+    from ibwa_tpu_torch.align import engine, pipeline
+    from ibwa_tpu_torch.align.opts import GapOpt
+    opt = GapOpt()
+    reads = [r for fq in fqs for r in pipeline._load(str(fq), opt)]
+    if len(reads) != pipeline.BATCH_SIZE:
+        raise AssertionError(f"{len(reads)} reads, not one whole batch")
+    seqs, rseqs = [r.seq for r in reads], [r.rseq for r in reads]
+    launch, collect = engine.launch_search, engine.collect_search
+    calls = []
+
+    def launch_ahead(*a, **k):
+        calls.append(("launch", time.perf_counter()))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return launch(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def launch_wait(*a, **k):
+        calls.append(("launch", time.perf_counter()))
+        launched = launch(*a, **k)
+        torch.cuda.synchronize()
+        return launched
+
+    def collect_rec(launched):
+        got = collect(launched)
+        calls.append(("collect", time.perf_counter()))
+        return got
+
+    os.environ["IBWA_HOST_FRAC"] = "0"
+    eng = engine.TorchAlnEngine(fms, dev)
+    walls = {"ahead": [], "one_by_one": []}
+    want = None
+    try:
+        for mode in ("ahead", "one_by_one", "one_by_one", "ahead"):
+            engine.launch_search = (launch_ahead if mode == "ahead"
+                                    else launch_wait)
+            engine.collect_search = collect_rec
+            calls.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = eng.align_batch(seqs, rseqs, opt)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            kinds = [c[0] for c in calls]
+            n = kinds.count("launch")
+            if n != -(-len(seqs) // engine.PERSIST_N):
+                raise AssertionError(f"{n} chunks launched")
+            if mode == "ahead" and kinds != ["launch"] * n + ["collect"] * n:
+                raise AssertionError("a chunk was read back before every "
+                                     "chunk of the batch was launched")
+            walls[mode].append((calls[-1][1] - calls[0][1], wall))
+            hits = [[dataclasses.astuple(h) for h in r] for r in out]
+            if want is None:
+                want = hits
+                log(f"C1: {len(seqs)} reads ({n} chunks) device-only: every "
+                    f"launch made under sync debug mode 'error', all before "
+                    f"the first read-back; device memory {base} bytes "
+                    f"before the batch, peak {peak} ({peak - base} for the "
+                    f"batch); stats {eng.stats}")
+            elif hits != want:
+                raise AssertionError(f"C1: the {mode} order gave other hits")
+    finally:
+        engine.launch_search, engine.collect_search = launch, collect
+        os.environ.pop("IBWA_HOST_FRAC", None)
+        eng.close()
+    for mode, w in walls.items():
+        log(f"C1 {mode}: first launch to last counters read "
+            f"{' / '.join(f'{a:.4f}' for a, _ in w)} s, whole align_batch "
+            f"{' / '.join(f'{b:.4f}' for _, b in w)} s "
+            f"({' / '.join(f'{len(seqs) / b:.1f}' for _, b in w)} reads/s); "
+            f"hits equal")
+
+
+def sampe_run(args: list[str], out: pathlib.Path, device: bool
+              ) -> tuple[float, list[tuple], dict]:
+    """One `sampe` run: (wall s, the prefill lines' numbers, launches).
+    The device route must launch lf_walk and nothing else, prefill every
+    batch and leave no row to the host walks; the native route launches
+    nothing."""
+    from ibwa_tpu_torch import kernels
+    kernels.reset_launches()
+    wall, err = run_cli("sampe", args, out)
+    got = dict(kernels.launches)
+    batches = [tuple(float(x) for x in m.groups())
+               for m in PREFILL_LINE.finditer(err)]
+    if not device:
+        if got or batches:
+            raise AssertionError(f"sampe --engine native launched {got}")
+        return wall, batches, got
+    if set(got) != {"lf_walk"} or got["lf_walk"] <= 0:
+        raise AssertionError(f"sampe on the card launched {got}, not "
+                             f"lf_walk alone")
+    if not batches or any(b[0] <= 0 or b[2] or b[3] for b in batches):
+        raise AssertionError(f"a batch's SA walks were not all prefilled "
+                             f"on the card:\n{err}")
+    return wall, batches, got
+
+
+PREFILL_LINE = re.compile(
+    r"\[sai2sam_pe\] prefill (\d+) rows in (\d+) dispatches, (\d+) rows "
+    r"of (\d+) intervals left to the host walks, ([\d.]+) s")
+
+
+def first_reads(fq: pathlib.Path, n: int, out: pathlib.Path) -> None:
+    with open(fq, "rb") as f:
+        out.write_bytes(b"".join(itertools.islice(f, 4 * n)))
+
+
+def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
+    """`aln --device cuda` on both ends of the pairs; `sampe -R` on all
+    of them with the SA walks on the card (K5 prefilling each batch) and
+    with `--engine native` (host walks), SAM byte-equal, the device run
+    traced for K5's time on sampe's own rows and the rows it walked
+    recorded for K5's bound; then the rates, ROUNDS rounds of the two
+    routes in turns on the first RATE_PAIRS pairs, untraced, SAM
+    byte-equal in every round; then `samse` on end 1: one line per read.
+    Returns K5's row of the kernel table from this path."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch.fm import walk
+    sais = [WORK / f"pairs_{e}.sai" for e in (1, 2)]
+    for fq, out in zip(fqs, sais):
+        kernels.reset_launches()
+        st = run_aln([str(fa), str(fq), "--device", "cuda"], out)
+        log(f"aln --device cuda {fq.name}: {st['reads'] / st['search_s']:.1f} "
+            f"reads/s of search wall, {st['reads'] / st['wall_s']:.1f} end "
+            f"to end; device reads {st['device_reads']}, fallback "
+            f"{st['fallback_reads']}, host share {st['host_reads']}; "
+            f"launches {dict(kernels.launches)}")
+    routes = {"native": ["-R", "--engine", "native"],
+              "device": ["-R", "--device", "cuda"]}
+    args = [str(fa), *map(str, sais), *map(str, fqs)]
+    sam = {name: WORK / f"pairs_{name}.sam" for name in routes}
+
+    # all the pairs: the SAM, K5's launches and time, and the rows it walks
+    native_s, _, _ = sampe_run(routes["native"] + args, sam["native"], False)
+    calls, resolve = [], walk.DeviceWalker.resolve
+
+    def recorded(self, strand, rows):
+        calls.append((self, np.array(strand), np.array(rows)))
+        return resolve(self, strand, rows)
+
+    walk.DeviceWalker.resolve = recorded
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced_s, prefill, launches = sampe_run(
+                routes["device"] + args, sam["device"], True)
+    finally:
+        walk.DeviceWalker.resolve = resolve
+    want = sam["native"].read_bytes()
+    if sam["device"].read_bytes() != want:
+        raise AssertionError("sampe SAM with K5's walks differs from the "
+                             "host walks'")
+    recs = [ln.split(b"\t") for ln in want.splitlines() if ln[:1] != b"@"]
+    mapped = sum(1 for f in recs if not int(f[1]) & 4)
+    if len(recs) != 2 * N_PAIRS or mapped < N_PAIRS:
+        raise AssertionError(f"sampe: {len(recs)} records, {mapped} mapped")
+    mean_us = [e.self_device_time_total / e.count
+               for e in prof.key_averages()
+               if "lf_walk_kernel" in e.key and e.count]
+    if not mean_us:
+        raise AssertionError("the trace saw no lf_walk launch")
+    k5_ms = mean_us[0] * launches["lf_walk"] / 1e3
+    walker = calls[0][0]
+    if any(c[0] is not walker for c in calls):
+        raise AssertionError("one db, so one walker")
+    t = lambda a: torch.from_numpy(a.astype(np.int64)).to(walker.fm.device)
+    fp = walk_footprint(walker.fm, [(t(s), t(r)) for _, s, r in calls],
+                        walker.sa_intv - 1, walker.lanes)
+    wpb = walker.fm.wpb
+    del calls, walker
+    rows = sum(int(b[0]) for b in prefill)
+    bd = walk_bound(rows, fp, wpb)
+    lat_ms = fp["chain"] * warp_us / 1e3
+    per_batch = " + ".join(f"{int(b[0])} rows in {int(b[1])} dispatches, "
+                           f"{b[4]:.4f} s" for b in prefill)
+    log(f"sampe -R on {N_PAIRS} pairs: SAM byte-equal between K5's walks "
+        f"and the host walks ({len(want)} bytes, {len(recs)} records, "
+        f"{mapped} mapped); host walks {native_s:.3f} s; K5's walks under "
+        f"the profiler {traced_s:.3f} s (no rate: traced), the prefill "
+        f"{per_batch}, no row left to the host walks; K5 "
+        f"{launches['lf_walk']} launches, device ms "
+        f"{k5_ms:.5f}; its walks {fp['steps']} LF steps "
+        f"({fp['steps'] / rows:.2f} a row) over {fp['rows']} distinct table "
+        f"rows of {fp['row_bytes']} B, the longest walk of each dispatch "
+        f"summed {fp['chain']}; byte bound {bd['bound_ms']:.5f} "
+        f"({bd['bound_by']}), latency bound {fp['chain']} x {warp_us:.3f} us "
+        f"= {lat_ms:.5f} ms")
+
+    # the rates: the first RATE_PAIRS pairs, ROUNDS rounds in turns
+    sub_fq = [WORK / f"rate_pairs_{e}.fq" for e in (1, 2)]
+    sub_sai = [WORK / f"rate_pairs_{e}.sai" for e in (1, 2)]
+    for fq, sfq, sai_ in zip(fqs, sub_fq, sub_sai):
+        first_reads(fq, RATE_PAIRS, sfq)
+        run_aln([str(fa), str(sfq), "--device", "cuda"], sai_)
+    args = [str(fa), *map(str, sub_sai), *map(str, sub_fq)]
+    walls = {name: [] for name in routes}
+    pre_s, want = [], None
+    for r in range(ROUNDS):
+        for name in routes if r % 2 == 0 else list(routes)[::-1]:
+            wall, batches, _ = sampe_run(routes[name] + args, sam[name],
+                                         name == "device")
+            walls[name].append(wall)
+            if batches:
+                pre_s.append(sum(b[4] for b in batches))
+        sams = {name: sam[name].read_bytes() for name in routes}
+        if sams["device"] != sams["native"]:
+            raise AssertionError(f"round {r}: sampe SAM with K5's walks "
+                                 f"differs from the host walks'")
+        if want is not None and sams["native"] != want:
+            raise AssertionError(f"round {r}: sampe SAM differs from round 0")
+        want = sams["native"]
+    n = 2 * RATE_PAIRS
+    share = [p / w for p, w in zip(pre_s, walls["device"])]
+    log(f"sampe -R on the first {RATE_PAIRS} pairs, {ROUNDS} rounds in "
+        f"turns, no profiler: SAM byte-equal in every round; reads/s with "
+        f"K5's walks {spread([n / w for w in walls['device']])}, with the "
+        f"host walks {spread([n / w for w in walls['native']])}; the "
+        f"prefill {' / '.join(f'{p:.4f}' for p in pre_s)} s = "
+        f"{' / '.join(f'{x:.4f}' for x in share)} of the run")
+    out = WORK / "pairs_1.samse.sam"
+    wall, _ = run_cli("samse", [str(fa), str(sais[0]), str(fqs[0])], out)
+    lines = out.read_bytes().splitlines()
+    head = sum(1 for ln in lines if ln[:1] == b"@")
+    if len(lines) - head != N_PAIRS or head < 2:
+        raise AssertionError(f"samse: {len(lines)} lines, {head} of header, "
+                             f"for {N_PAIRS} reads")
+    log(f"samse on end 1: exit 0, {head} header lines + {N_PAIRS} records, "
+        f"{N_PAIRS / wall:.1f} reads/s end to end ({wall:.3f} s)")
+    return {"launches": launches["lf_walk"], "sampe_ms": k5_ms,
+            "sampe_rows": rows, "sampe_steps": fp["steps"],
+            "sampe_rows_fetched": fp["rows"], "sampe_bound_ms": bd["bound_ms"],
+            "sampe_bound_by": bd["bound_by"], "sampe_latency_bound_ms": lat_ms}
 
 
 SOURCES = {
@@ -1047,6 +1439,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+    global CARD
+    CARD = smi.splitlines()[0]
     dev = torch.device("cuda", 0)
     log(f"device {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -1079,11 +1473,18 @@ def main() -> int:
     fms = (FmIndex(load_index(str(fa), 0)), FmIndex(load_index(str(fa), 1)))
     fm = build_device_pair(fms[0], fms[1], dev)
     chunk = smoke_chunk(fms, fq, dev)
+    stamp = lambda what: log(f"{what} done at "
+                             f"{time.perf_counter() - t_start:.0f} s")
+    stamp("inputs")
     rows = {"stack_update": check_stack(dev), **check_occ(fm, dev),
-            "width_pass": check_width_pass(fm, chunk),
-            "search_step": check_search_step(fm, chunk)}
+            "width_pass": check_width_pass(fm, chunk)}
+    stamp("K1, K2, K6 checks")
+    rows["search_step"] = check_search_step(fm, chunk)
+    stamp("search_step check")
     rows["lane_switch"], switch_cases = check_lane_switch(fm, chunk)
+    stamp("lane_switch check")
     rows["search_chunk"] = check_search_chunk(fm, chunk, switch_cases)
+    stamp("search_chunk check")
     del switch_cases
     tables = {label: bench_chase.make_table_device(n, w, SEED, dev)
               for label, n, w in PROBE_TABLES}
@@ -1105,6 +1506,7 @@ def main() -> int:
     warp_us = {r["table"]: r["marginal_us_per_step"] for r in records
                if r["variant"] == "chase" and r["lanes"] == 32}
     longest = rows["lf_walk"].pop("_longest")
+    rows["lf_walk"]["latency_bound_ms"] = longest * warp_us["b"] / 1e3
     # a search step's occ4 rows depend on the pop the step before left, and
     # the E-chain's occ1 rows on them: 1 to E_UNROLL dependent fetches
     from ibwa_tpu_torch.align import engine
@@ -1130,11 +1532,10 @@ def main() -> int:
         f"{lane * warp_us['b'] / 1e3:.5f} to "
         f"{engine.E_UNROLL * lane * warp_us['b'] / 1e3:.5f} ms")
 
-    # ---- 4b. the walker
-    kernels.reset_launches()
+    # ---- 4b. the walker on random rows (its launches on its path are
+    # sampe's, 4d)
     run_walker(fms, dev)
-    launches.update(kernels.launches)
-    log(f"probe and walker done at {time.perf_counter() - t_start:.0f} s")
+    stamp("probe and walker")
 
     # ---- 4c. aln
     aln_launches, hybrid_launches = run_aln_paths(fa, fq)
@@ -1153,8 +1554,19 @@ def main() -> int:
                              f"{chunks} chunks, one launch of each kernel "
                              f"per chunk, not {aln_launches}")
     profile_chunk(fms, fm, chunk)
-    del fms, fm, chunk
     launches.update(aln_launches)
+    stamp("aln")
+
+    # ---- 4d. a whole aln batch dispatched ahead (C1), then sampe and
+    # samse on the pairs
+    fqs = make_pairs(fa)
+    check_dispatch_ahead(fms, fqs, dev)
+    stamp("C1 check")
+    del fms, fm, chunk
+    torch.cuda.empty_cache()
+    sampe_row = run_sampe_phase(fa, fqs, warp_us["b"])
+    launches["lf_walk"] = sampe_row.pop("launches")
+    rows["lf_walk"].update(sampe_row)
     for name in WITHIN:
         launches[name] = launches.get(host_kernel(name), 0)
     for name in rows:

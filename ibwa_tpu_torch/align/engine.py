@@ -1032,6 +1032,42 @@ def search_chunk(cfg: EngineConfig, fm: DeviceFmPair, seqs, big, lens,
         torch.cuda.current_stream(dev).cuda_stream)
 
 
+def launch_search(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
+                  max_diff0, has_seed, seed_seqs, bad, n_lanes: int):
+    """The first half of `run_search_persistent`: start the search of a
+    chunk and return (hits, n_hits, fb, counters) for `collect_search`.
+
+    CUDA tensors: `big_planes` (one launch) and `search_chunk` (one
+    launch); nothing here waits for the card, and counters is
+    search_chunk's, on the card.  CPU tensors: the phased loop,
+    `run_search_phased`, done when this returns; counters = (0 reads
+    left, its steps)."""
+    dev = fm.device
+    if dev.type == "cpu":
+        hits, n_hits, fb, steps = run_search_phased(
+            cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs, bad,
+            n_lanes)
+        return hits, n_hits, fb, torch.tensor([0, steps])
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    big = big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs)
+    out_h, n_hits, fb, counters = search_chunk(
+        cfg, fm, seqs, big, lens, max_diff0, has_seed, bad, n_lanes)
+    return out_h.permute(1, 2, 0), n_hits, fb, counters
+
+
+def collect_search(launched):
+    """The second half of `run_search_persistent`: read the counters of a
+    `launch_search` (on CUDA tensors the copy to the host waits for the
+    chunk's kernel) and apply the iteration bound.  Returns (hits, n_hits,
+    fb, steps) as `run_search_persistent`."""
+    hits, n_hits, fb, counters = launched
+    left, steps = counters.tolist()[:2]  # sync
+    if left > 0:  # iteration bound: all fall back
+        fb = torch.ones_like(fb)
+    return hits, n_hits, fb, steps
+
+
 def run_search_persistent(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
                           max_diff0, has_seed, seed_seqs, bad,
                           n_lanes: int):
@@ -1045,22 +1081,12 @@ def run_search_persistent(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
     int64[N, HCAP, 3] as (meta, k, l), n_hits int64[N], fb bool[N],
     steps); `hits[r, n_hits[r]:]` is not part of the result.
 
-    CPU tensors: the phased loop, `run_search_phased`.  CUDA tensors:
-    `big_planes` (one launch), `search_chunk` (one launch), then one copy
-    of the counters to the host, the only sync."""
-    dev = fm.device
-    if dev.type == "cpu":
-        return run_search_phased(cfg, fm, seqs, lens, max_diff0, has_seed,
-                                 seed_seqs, bad, n_lanes)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    big = big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs)
-    out_h, n_hits, fb, counters = search_chunk(
-        cfg, fm, seqs, big, lens, max_diff0, has_seed, bad, n_lanes)
-    left, steps = counters.tolist()[:2]  # sync
-    if left > 0:  # iteration bound: all fall back
-        fb = torch.ones_like(fb)
-    return out_h.permute(1, 2, 0), n_hits, fb, steps
+    `launch_search` then `collect_search`.  CPU tensors: the phased loop,
+    `run_search_phased`.  CUDA tensors: `big_planes` (one launch),
+    `search_chunk` (one launch), then one copy of the counters to the
+    host, the only sync."""
+    return collect_search(launch_search(cfg, fm, seqs, lens, max_diff0,
+                                        has_seed, seed_seqs, bad, n_lanes))
 
 
 def clone_state(st: SearchState) -> SearchState:
@@ -1289,23 +1315,33 @@ class TorchAlnEngine:
             host_jobs.append((lo, self._pool.submit(
                 timed_native, seqs[lo:hi], rseqs[lo:hi])))
 
-        # ---- vectorized input packing of the device share
-        all_sq, all_ssq, all_hs, all_bad = _pack_reads(
-            seqs[:host_lo], rseqs[:host_lo], lens[:host_lo],
-            max_diff[:host_lo], L, SL, opt.seed_len)
+        # ---- vectorized input packing of the device share, uploaded at
+        # once: an upload from pageable memory waits for the stream, so one
+        # between two chunks would wait for the chunk before
+        packed = _pack_reads(seqs[:host_lo], rseqs[:host_lo], lens[:host_lo],
+                             max_diff[:host_lo], L, SL, opt.seed_len)
+        all_sq, all_ssq, all_hs, all_bad = (
+            torch.from_numpy(a).to(self.device) for a in packed)
+        all_lens, all_md = (torch.from_numpy(a[:host_lo]).to(self.device)
+                            for a in (lens, max_diff))
+
+        # ---- every chunk of the device share is launched before the
+        # first is read back (engine_jax.py:1061-1102), so the card runs
+        # on while the host downloads and decodes; eager torch has no
+        # compiled shapes: the tail chunk runs at its own size (no padding
+        # reads), on no more lanes than reads
+        pending = []
+        for lo in range(0, host_lo, PERSIST_N):
+            hi = min(lo + PERSIST_N, host_lo)
+            pending.append((lo, launch_search(
+                cfg, self.dfm, all_sq[lo:hi], all_lens[lo:hi],
+                all_md[lo:hi], all_hs[lo:hi], all_ssq[lo:hi],
+                all_bad[lo:hi], n_lanes=min(DEV_BATCH, hi - lo))))
 
         fb_jobs = []
         n_fb = 0
-        dev = self.device
-        for lo in range(0, host_lo, PERSIST_N):
-            hi = min(lo + PERSIST_N, host_lo)
-            # eager torch has no compiled shapes: the tail chunk runs at
-            # its own size (no padding reads), on no more lanes than reads
-            put = lambda a: torch.from_numpy(a[lo:hi]).to(dev)
-            harr, n_hits, fb, steps = run_search_persistent(
-                cfg, self.dfm, put(all_sq), put(lens), put(max_diff),
-                put(all_hs), put(all_ssq), put(all_bad),
-                n_lanes=min(DEV_BATCH, hi - lo))
+        for lo, launched in pending:
+            harr, n_hits, fb, steps = collect_search(launched)
             harr = harr.cpu().numpy()
             nh = n_hits.cpu().numpy()
             fb = fb.cpu().numpy()

@@ -1,9 +1,9 @@
-"""Command-line interface of the port: `index` and `aln`.
+"""Command-line interface of the port: `index`, `aln`, `samse` and `sampe`.
 
 Usage: python -m ibwa_tpu_torch <command> [options]
 
-The other stages of `ibwa_tpu`'s CLI (`samse`, `sampe`, `bwasw` and the
-tools) are not ported yet: they print that to stderr and return 2.
+The other stages of `ibwa_tpu`'s CLI (`bwasw` and the tools) are not
+ported yet: they print that to stderr and return 2.
 """
 
 from __future__ import annotations
@@ -11,9 +11,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-NOT_PORTED = ("samse", "sampe", "bwasw", "fa2pac", "pac2bwt", "pac2bwtgen",
-              "bwtupdate", "pac_rev", "bwt2sa", "pac2cspac", "stdsw",
-              "qualfa2fq", "solid2fastq", "prepare-remap")
+NOT_PORTED = ("bwasw", "fa2pac", "pac2bwt", "pac2bwtgen", "bwtupdate",
+              "pac_rev", "bwt2sa", "pac2cspac", "stdsw", "qualfa2fq",
+              "solid2fastq", "prepare-remap")
 
 
 def cmd_index(argv: list[str]) -> int:
@@ -120,7 +120,97 @@ def cmd_aln(argv: list[str]) -> int:
     return 0
 
 
-COMMANDS = {"index": cmd_index, "aln": cmd_aln}
+def cmd_samse(argv: list[str]) -> int:
+    """`samse` with the option surface of ibwa_tpu.cli.cmd_samse.  Nothing
+    of it runs on a device, as in the reference."""
+    ap = argparse.ArgumentParser(prog="ibwa-tpu-torch samse")
+    ap.add_argument("prefix")
+    ap.add_argument("sai")
+    ap.add_argument("fastq")
+    ap.add_argument("-n", type=int, default=3, help="max XA hits")
+    ap.add_argument("-f", default=None, help="output file [stdout]")
+    ap.add_argument("-r", default=None, help="@RG header line")
+    args = ap.parse_args(argv)
+    from .sam.bwase import parse_rg, sai2sam_se
+    rg_line = rg_id = None
+    if args.r is not None:
+        rg_line, rg_id = parse_rg(args.r)
+        if rg_id is None:
+            print(f"[{__name__}] malformated @RG line", file=sys.stderr)
+            return 1
+    out = open(args.f, "w") if args.f else sys.stdout
+    try:
+        sai2sam_se(args.prefix, args.sai, args.fastq, n_occ=args.n,
+                   out=out, rg_line=rg_line, rg_id=rg_id)
+    finally:
+        if args.f:
+            out.close()
+    return 0
+
+
+def cmd_sampe(argv: list[str]) -> int:
+    """`sampe` with the option surface of ibwa_tpu.cli.cmd_sampe plus
+    --engine and --device: `torch` walks each batch's SA rows with K5 on
+    --device (cpu: its plain version), `native` walks them on the host
+    inside the native stage (the reference's default)."""
+    ap = argparse.ArgumentParser(prog="ibwa-tpu-torch sampe")
+    ap.add_argument("args", nargs="+",
+                    help="<prefix> <1.sai> <2.sai> <1.fq> <2.fq> "
+                         "[<prefix2> <sai> <sai> ...]")
+    ap.add_argument("-a", type=int, default=500, help="max insert size")
+    ap.add_argument("-o", type=int, default=100000, help="max occ per end")
+    ap.add_argument("-n", type=int, default=3, help="max multi hits")
+    ap.add_argument("-N", type=int, default=10, help="max discordant hits")
+    ap.add_argument("-c", type=float, default=1e-5, help="chimeric prior")
+    ap.add_argument("-f", default=None, help="output file [stdout]")
+    ap.add_argument("-r", default=None, help="@RG header line")
+    ap.add_argument("-s", action="store_true", help="disable mate SW")
+    ap.add_argument("-A", action="store_true", help="disable isize estimate")
+    ap.add_argument("-R", action="store_true", help="enable remapping")
+    ap.add_argument("-P", action="store_true", help="preload index")
+    ap.add_argument("-t", type=int, default=1, help="threads")
+    ap.add_argument("--engine", default="torch", choices=["torch", "native"])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the SA walks (cuda, cuda:N, cpu)")
+    args = ap.parse_args(argv)
+    pos = args.args
+    if len(pos) < 5 or (len(pos) - 5) % 3 != 0:
+        print("usage: sampe <prefix> <1.sai> <2.sai> <1.fq> <2.fq> ...",
+              file=sys.stderr)
+        return 1
+    prefixes = [pos[0]]
+    sai_pairs = [(pos[1], pos[2])]
+    fq1, fq2 = pos[3], pos[4]
+    i = 5
+    while i < len(pos):
+        prefixes.append(pos[i])
+        sai_pairs.append((pos[i + 1], pos[i + 2]))
+        i += 3
+    from .sam.bwase import parse_rg
+    from .sam.sampe import PeOpt, sai2sam_pe
+    popt = PeOpt(max_isize=args.a, max_occ=args.o, n_multi=args.n,
+                 N_multi=args.N, ap_prior=args.c,
+                 is_sw=0 if args.s else 1, force_isize=1 if args.A else 0,
+                 remapping=1 if args.R else 0, n_threads=args.t)
+    rg_line = rg_id = None
+    if args.r is not None:
+        rg_line, rg_id = parse_rg(args.r)
+        if rg_id is None:
+            print("[sampe] malformated @RG line", file=sys.stderr)
+            return 1
+    out = open(args.f, "w") if args.f else sys.stdout
+    try:
+        sai2sam_pe(prefixes, sai_pairs, fq1, fq2, popt, out=out,
+                   rg_line=rg_line, rg_id=rg_id,
+                   device=args.device if args.engine == "torch" else None)
+    finally:
+        if args.f:
+            out.close()
+    return 0
+
+
+COMMANDS = {"index": cmd_index, "aln": cmd_aln, "samse": cmd_samse,
+            "sampe": cmd_sampe}
 
 
 def main(argv: list[str] | None = None) -> int:

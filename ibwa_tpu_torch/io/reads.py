@@ -5,9 +5,7 @@ bwa_read_seq (bwaseqio.c:145-208): 2-bit encode via nst_nt4_table, store
 "/1" or "/2" from names, optional quality trimming (-q).
 
 Copy of `ibwa_tpu/io/reads.py`: the port keeps its own host code and imports
-nothing of `ibwa_tpu`.  `ReadBatch` / `load_read_batch` are left out: they
-serve `samse`/`sampe` only and need `ibwa_fastq_scan` of
-`native/src/sam_text.cpp`, which is copied with those stages.
+nothing of `ibwa_tpu`.
 """
 
 from __future__ import annotations
@@ -107,6 +105,81 @@ def _load_reads_fast(path: str, is_comp: bool) -> list[Read] | None:
             bc="",
         ))
     return reads
+
+
+@dataclasses.dataclass
+class ReadBatch:
+    """Whole-file read set as flat blobs (the native emit path's input
+    contract) — no per-read Python objects.
+
+    orig_blob holds forward full-length nt4 codes; the native side
+    derives reversed/revcomp views itself.  Offsets are int64 [n+1]."""
+
+    n: int
+    names: list[bytes] | None    # unused fast-path marker (blob is canonical)
+    name_blob: np.ndarray
+    name_off: np.ndarray
+    orig_blob: np.ndarray
+    orig_off: np.ndarray
+    qual_blob: np.ndarray
+    qual_off: np.ndarray
+    lens: np.ndarray             # clip_len per read (int32)
+    fulls: np.ndarray            # full_len per read (int32)
+
+    def read(self, i: int) -> Read:
+        """Materialize one Read (mate-rescue candidates only)."""
+        a, b = int(self.orig_off[i]), int(self.orig_off[i + 1])
+        codes = self.orig_blob[a:b]
+        qa, qb = int(self.qual_off[i]), int(self.qual_off[i + 1])
+        qual = self.qual_blob[qa:qb].tobytes() if qb > qa else None
+        rs = _complement(codes)
+        na, nb = int(self.name_off[i]), int(self.name_off[i + 1])
+        name = self.name_blob[na:nb].tobytes()
+        return Read(name=name.decode("latin-1"),
+                    seq=codes[::-1], rseq=rs[::-1], qual=qual,
+                    full_len=b - a, clip_len=b - a, orig=codes, bc="")
+
+
+def load_read_batch(path: str) -> ReadBatch | None:
+    """Vectorized plain-FASTQ -> ReadBatch (no trim/barcode/offset-64
+    support; callers fall back to load_reads for those modes)."""
+    import ctypes
+
+    from .. import native
+    with open(path, "rb") as f:
+        head = f.read(2)
+        if not head.startswith(b"@") or head[:2] == b"\x1f\x8b":
+            return None
+        data = np.frombuffer(head + f.read(), dtype=np.uint8)
+    lib = native.load()
+    u8p, i64p = (ctypes.POINTER(ctypes.c_uint8),
+                 ctypes.POINTER(ctypes.c_int64))
+    dptr = data.ctypes.data_as(u8p)
+    totals = np.zeros(3, dtype=np.int64)
+    n = lib.ibwa_fastq_scan(dptr, len(data),
+                            totals.ctypes.data_as(i64p),
+                            None, None, None, None, None, None)
+    if n < 0:
+        return None
+    n = int(n)
+    orig_blob = np.empty(max(int(totals[0]), 1), dtype=np.uint8)
+    qual_blob = np.empty(max(int(totals[1]), 1), dtype=np.uint8)
+    name_blob = np.empty(max(int(totals[2]), 1), dtype=np.uint8)
+    orig_off = np.zeros(n + 1, dtype=np.int64)
+    qual_off = np.zeros(n + 1, dtype=np.int64)
+    name_off = np.zeros(n + 1, dtype=np.int64)
+    lib.ibwa_fastq_scan(dptr, len(data), None,
+                        orig_blob.ctypes.data_as(u8p),
+                        orig_off.ctypes.data_as(i64p),
+                        qual_blob.ctypes.data_as(u8p),
+                        qual_off.ctypes.data_as(i64p),
+                        name_blob.ctypes.data_as(u8p),
+                        name_off.ctypes.data_as(i64p))
+    l32 = np.diff(orig_off).astype(np.int32)
+    return ReadBatch(n=n, names=None, name_blob=name_blob,
+                     name_off=name_off, orig_blob=orig_blob,
+                     orig_off=orig_off, qual_blob=qual_blob,
+                     qual_off=qual_off, lens=l32, fulls=l32)
 
 
 def load_reads(path: str, trim_qual: int = 0, is_64: bool = False,

@@ -4,9 +4,12 @@ The library is built on demand with g++ (no pip/pybind dependency). All
 entry points use plain C ABI + NumPy buffers.
 
 Copy of `ibwa_tpu/native/__init__.py`, trimmed to what the copied sources
-(`src/core.cpp`, `src/sais_frugal.cpp`, `src/lf_step.h`) export: the
-`samse`/`sampe`/`bwasw` sources (`pe_stage.cpp`, `bsw2.cpp`,
-`sam_text.cpp`) and their bindings come with those stages.  The library
+(`src/core.cpp`, `src/sais_frugal.cpp`, `src/lf_step.h`,
+`src/sam_text.cpp`, `src/pe_stage.cpp`) export: `bwasw`'s source
+(`bsw2.cpp`) and its bindings come with that stage.  The `sampe` stage's
+own symbols (`ibwa_pe_*`, `ibwa_se_stage`, `ibwa_sai_scan`,
+`ibwa_interleave_blobs`) are bound where they are called, in
+`sam/pe_native.py`, as in `ibwa_tpu`.  The library
 is built into `build/ibwa_tpu_torch/` beside the CUDA kernels, never into
 the package directory, under a name keyed by a hash of the sources and
 the host stamp.
@@ -24,7 +27,8 @@ import threading
 import numpy as np
 
 _SRC_DIR = pathlib.Path(__file__).resolve().parent / "src"
-_SRCS = [_SRC_DIR / "core.cpp", _SRC_DIR / "sais_frugal.cpp"]
+_SRCS = [_SRC_DIR / "core.cpp", _SRC_DIR / "pe_stage.cpp",
+         _SRC_DIR / "sais_frugal.cpp", _SRC_DIR / "sam_text.cpp"]
 _HDRS = [_SRC_DIR / "lf_step.h"]
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / \
     "build" / "ibwa_tpu_torch"
@@ -141,6 +145,14 @@ def load() -> ctypes.CDLL:
         lib.ibwa_bwt_packed32.argtypes = [u8p, ctypes.c_uint32, u32p, u8p,
                                           ctypes.c_int32]
         lib.ibwa_bwt_packed32.restype = ctypes.c_int64
+        lib.ibwa_cal_md.argtypes = [
+            u32p, ctypes.c_int32, u8p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, u8p, ctypes.c_int32, ctypes.c_char_p,
+            ctypes.c_int64, i32p]
+        lib.ibwa_cal_md.restype = ctypes.c_int64
+        lib.ibwa_fastq_scan.argtypes = [
+            u8p, ctypes.c_int64, i64p, u8p, i64p, u8p, i64p, u8p, i64p]
+        lib.ibwa_fastq_scan.restype = ctypes.c_int64
         lib.ibwa_match_gap_batch.argtypes = [
             u32p, ctypes.c_uint32, u32p, ctypes.c_uint32, u32p,
             ctypes.c_uint32, u8p, u8p, i64p, i32p, i32p, i32p, i32p,

@@ -136,9 +136,9 @@ def test_aln_sai_byte_equal_to_jax_paired_end(pe_inputs, tmp_path,
 
 def test_port_never_imports_jax(aln_inputs, tmp_path):
     """Import the port and run its `index`, its `aln` (which must go
-    through `engine.run_search_persistent`: on CUDA tensors that call is
-    the `search_chunk` launch, on the CPU tensors here its plain version,
-    the phased loop over `engine.search_steps`) and one
+    through `engine.launch_search`: on CUDA tensors that call is the
+    `width_pass` and `search_chunk` launches, on the CPU tensors here the
+    plain version, the phased loop over `engine.search_steps`) and one
     `DeviceWalker.resolve` with
     `jax`, `ibwa_tpu` and `bench` blocked: any import of one of them (or of
     a module that imports one) fails the run."""
@@ -163,8 +163,8 @@ def test_port_never_imports_jax(aln_inputs, tmp_path):
         "calls, steps = [], engine.search_steps\n"
         "engine.search_steps = lambda *a: (calls.append(a[-1]), "
         "steps(*a))[1]\n"
-        "chunks, run = [], engine.run_search_persistent\n"
-        "engine.run_search_persistent = lambda *a, **k: "
+        "chunks, run = [], engine.launch_search\n"
+        "engine.launch_search = lambda *a, **k: "
         "(chunks.append(k['n_lanes']), run(*a, **k))[1]\n"
         "from ibwa_tpu_torch import cli\n"
         f"rc = cli.main(['index', '-p', {str(prefix)!r}, {str(fa)!r}])\n"

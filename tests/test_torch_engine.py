@@ -11,8 +11,9 @@ host emulator (engine_ref, the semantic oracle), on the CPU.
   card: between them they reach every branch the kernel has to get right,
   and `search_steps` equals n plain steps on each;
 * the 5 engine cases of test_engine_jax equal engine_ref hit for hit;
-* chunked dispatch, variable read lengths, lane-count invariance and the
-  fixed full host share.
+* chunked dispatch (every chunk launched before the first is collected),
+  variable read lengths, lane-count invariance and the fixed full host
+  share.
 Exact comparison everywhere: this is integer search.
 """
 
@@ -383,6 +384,56 @@ def test_chunked_dispatch(small_index, small_lanes, monkeypatch):
         assert _tuples(eng.align_batch(seqs, rseqs, opt)) == ref
     finally:
         eng.close()
+
+
+def test_chunks_launched_before_any_is_collected(small_index, small_lanes,
+                                                 monkeypatch):
+    """align_batch launches every chunk of its device share before it
+    reads the first back, as engine_jax.py:1061-1102 dispatches them, and
+    the hits are those of the one-by-one order (each chunk collected as
+    soon as it is launched) and of engine_ref."""
+    fms, seq = small_index
+    opt = CASES["seeded"]
+    seqs, rseqs = _make_reads(seq)
+    ref = _tuples(engine_ref.align_batch(fms, seqs, rseqs, opt))
+    monkeypatch.setattr(engine, "PERSIST_N", 16)      # 40 reads -> 3 chunks
+    launch, collect = engine.launch_search, engine.collect_search
+    calls = []
+
+    def launch_rec(*a, **k):
+        calls.append(("launch", a[2].shape[0]))
+        return launch(*a, **k)
+
+    def collect_rec(launched):
+        calls.append(("collect", launched[1].shape[0]))
+        return collect(launched)
+
+    def run():
+        eng = engine.TorchAlnEngine(fms, "cpu")
+        try:
+            return _tuples(eng.align_batch(seqs, rseqs, opt))
+        finally:
+            eng.close()
+
+    monkeypatch.setattr(engine, "launch_search", launch_rec)
+    monkeypatch.setattr(engine, "collect_search", collect_rec)
+    ahead = run()
+    assert calls == [("launch", 16), ("launch", 16), ("launch", 8),
+                     ("collect", 16), ("collect", 16), ("collect", 8)]
+
+    # the one-by-one order: each chunk collected as soon as it is launched
+    serial = []
+
+    def launch_collect(*a, **k):
+        serial.append(collect(launch(*a, **k)))
+        hits, n_hits, fb, steps = serial[-1]
+        return hits, n_hits, fb, torch.tensor([0, steps])
+
+    monkeypatch.setattr(engine, "launch_search", launch_collect)
+    monkeypatch.setattr(engine, "collect_search", collect)
+    one_by_one = run()
+    assert len(serial) == 3
+    assert ahead == one_by_one == ref
 
 
 def test_lane_count_invariant(small_index, monkeypatch):

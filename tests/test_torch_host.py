@@ -11,6 +11,7 @@ import dataclasses
 import io
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -37,7 +38,7 @@ from ibwa_tpu_torch.index import builder as tbuilder
 from ibwa_tpu_torch.io import reads as treads
 from ibwa_tpu_torch.io import sai as tsai
 
-from conftest import REPO, make_genome
+from conftest import REPO, make_genome, simulate_reads
 
 EXTS = ("pac", "rpac", "ann", "amb", "bwt", "rbwt", "sa", "rsa")
 
@@ -219,34 +220,98 @@ def test_native_library_builds_outside_the_package():
         "libibwa_native_*.so"))
 
 
-@pytest.mark.parametrize("cmd", ["samse", "sampe", "bwasw", "pac2bwt"])
+@pytest.mark.parametrize("cmd", tcli.NOT_PORTED)
 def test_unported_commands_return_2(cmd, capsys):
     assert tcli.main([cmd, "x", "y"]) == 2
     assert "not ported yet" in capsys.readouterr().err
 
 
-def test_cli_never_imports_the_jax_package(host_inputs):
-    """`samse` answers "not ported yet" and `index` runs in a process where
-    `ibwa_tpu`, `jax` and `bench` cannot be imported."""
-    fa, _, _ = host_inputs
+def test_load_read_batch_fields_equal(host_inputs):
+    """The flat-blob FASTQ loader of the SAM stages (`ibwa_fastq_scan` of
+    `native/src/sam_text.cpp`)."""
+    _, _, fq = host_inputs
+    got = treads.load_read_batch(str(fq))
+    want = jreads.load_read_batch(str(fq))
+    assert got.n == want.n == 24
+    for f in ("name_blob", "name_off", "orig_blob", "orig_off", "qual_blob",
+              "qual_off", "lens", "fulls"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for i in (0, 5, 23):
+        g, w = got.read(i), want.read(i)
+        assert (g.name, g.qual) == (w.name, w.qual)
+        np.testing.assert_array_equal(g.rseq, w.rseq)
+
+
+def test_cli_never_imports_the_jax_package(host_inputs, tmp_path):
+    """`bwasw` answers "not ported yet", and `index`, `aln`, `samse`,
+    `sampe -R --device cpu` (K5's plain version prefilling the SA walks)
+    and `sampe -R --engine native` (no prefill, whatever IBWA_PE_DEVICE
+    says) run, in a process where `ibwa_tpu`, `jax` and `bench` cannot be
+    imported; the SAM text equals ibwa_tpu's on the same .sai."""
+    fa, jfa, fq = host_inputs
     prefix = fa.parent / "sub" / "g"
     prefix.parent.mkdir()
+    genome, name = {}, None
+    for line in fa.read_text().splitlines():
+        if line.startswith(">"):
+            name = line[1:].split()[0]
+            genome[name] = ""
+        else:
+            genome[name] += line
+    fq1, fq2 = simulate_reads(str(tmp_path / "pe"), genome, 40, read_len=70,
+                              seed=12, paired=True)
+    sai, sai1, sai2, se, pe, pe_host = (tmp_path / n for n in (
+        "r.sai", "1.sai", "2.sai", "se.sam", "pe.sam", "pe_host.sam"))
+    p = str(prefix)
     code = (
         "import sys\n"
         "for m in ('jax', 'ibwa_tpu', 'bench'):\n"
         "    sys.modules[m] = None\n"
+        "import ibwa_tpu_torch.sam.bwase, ibwa_tpu_torch.sam.cs2nt\n"
+        "import ibwa_tpu_torch.sam.dbset, ibwa_tpu_torch.sam.pe_native\n"
+        "import ibwa_tpu_torch.sam.remap, ibwa_tpu_torch.sam.sampe\n"
         "from ibwa_tpu_torch import cli\n"
-        "rc = cli.main(['samse', 'a', 'b', 'c'])\n"
-        f"rc2 = cli.main(['index', '-p', {str(prefix)!r}, {str(fa)!r}])\n"
+        "rc = cli.main(['bwasw', 'a', 'b'])\n"
+        f"rc2 = cli.main(['index', '-p', {p!r}, {str(fa)!r}])\n"
+        f"rc2 += cli.main(['aln', '--engine', 'native', {p!r}, {str(fq)!r},"
+        f" '-f', {str(sai)!r}])\n"
+        f"rc2 += cli.main(['samse', {p!r}, {str(sai)!r}, {str(fq)!r}, '-f',"
+        f" {str(se)!r}])\n"
+        f"for q, s in (({fq1!r}, {str(sai1)!r}), ({fq2!r}, {str(sai2)!r})):\n"
+        f"    rc2 += cli.main(['aln', '--engine', 'native', {p!r}, q, '-f', "
+        "s])\n"
+        f"rc2 += cli.main(['sampe', '-R', '--device', 'cpu', {p!r}, "
+        f"{str(sai1)!r}, {str(sai2)!r}, {fq1!r}, {fq2!r}, '-f', "
+        f"{str(pe)!r}])\n"
+        "import contextlib, io\n"
+        "err = io.StringIO()\n"
+        "with contextlib.redirect_stderr(err):\n"
+        f"    rc2 += cli.main(['sampe', '-R', '--engine', 'native', {p!r}, "
+        f"{str(sai1)!r}, {str(sai2)!r}, {fq1!r}, {fq2!r}, '-f', "
+        f"{str(pe_host)!r}])\n"
+        "assert 'prefill' not in err.getvalue(), err.getvalue()\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and "
         "m.split('.')[0] in ('jax', 'ibwa_tpu', 'bench')]\n"
         "assert not bad, bad\n"
         "sys.exit(10 * rc + rc2)\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    # the reference's switch of the device walks: the port never reads it
+    env = dict(os.environ, PYTHONPATH=str(REPO), IBWA_PE_DEVICE="1")
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 20, r.stderr[-3000:]
     assert "not ported yet" in r.stderr
+    assert re.search(r"\[sai2sam_pe\] prefill [1-9]\d* rows", r.stderr)
     for ext in EXTS:
         assert open(f"{prefix}.{ext}", "rb").read() == \
             open(f"{fa}.{ext}", "rb").read()
+    from ibwa_tpu.sam.bwase import sai2sam_se
+    from ibwa_tpu.sam.sampe import PeOpt, sai2sam_pe
+    want_se, want_pe = io.StringIO(), io.StringIO()
+    sai2sam_se(str(jfa), str(sai), str(fq), out=want_se)
+    sai2sam_pe([str(jfa)], [(str(sai1), str(sai2))], fq1, fq2,
+               PeOpt(remapping=1), out=want_pe)
+    assert se.read_text() == want_se.getvalue()
+    assert pe.read_text() == pe_host.read_text() == want_pe.getvalue()
+    mapped = [ln for ln in pe.read_text().splitlines()
+              if ln[0] != "@" and not int(ln.split("\t")[1]) & 4]
+    assert len(mapped) > 40
