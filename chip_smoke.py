@@ -29,8 +29,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      prefetch: hit counts, fallback flags, the step count and the hits
      below each count; K3
      chase and K4 chase_mw (W=4) on the probe's three tables; K5 lf_walk
-     on 131,072 random rows plus the edge rows, at block intervals 32, 64
-     and 128
+     (one persistent launch from SA intervals to SA values) on 131,072
+     random rows plus the edge rows as intervals of width 1 and on 20,000
+     random intervals of widths 1 to 256, at block intervals 32, 64 and
+     128, and its first version (one thread a row, (add, kfin) out) on the
+     random rows; on the random rows at 64 the two timed in turns
   4. the paths, each with the launch counts set to 0 just before it and
      read just after:
      a. the dependent-gather probe (`bench_chase.probe`) on three tables
@@ -39,8 +42,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         read at random it is met in HBM, the L2 keeps ~8-16 MB of it) and
         64,000,000 x 8 words (2 GB: a human-scale block table)
      b. the SA walker: `DeviceWalker.resolve` on 2,097,152 random
-        (strand, row) pairs of the smoke index, equal to the native
-        host `sa_lookup` (K5's launches on its path are sampe's, 4d)
+        (strand, row) pairs of the smoke index in one wave, equal to the
+        native host `sa_lookup` (K5's launches on its path are sampe's, 4d)
      c. `aln`: a 32 Mbp repeat-structured genome (indexed by the port's
         `index` and cached under .bench/smoke/), 16,384 simulated 100 bp
         reads; `ibwa_tpu_torch aln` native, device-only (IBWA_HOST_FRAC=0)
@@ -59,11 +62,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         memory, in turns with the one-by-one order (hits equal); then
         `aln --device cuda` on each end, `sampe -R` with K5 walking the SA
         rows on the card and with `--engine native` (host walks) on all
-        the pairs, SAM byte-equal, the device run traced, launching
-        lf_walk and nothing else and leaving no row to the host walks;
-        the rates on the first 32,768 pairs, three rounds of the two in
-        turns, untraced, SAM byte-equal in every round; and `samse` on
-        end 1, one line per read
+        the pairs, SAM byte-equal, its intervals recorded, launching
+        lf_walk and nothing else, once a wave, with 0 values refused by the
+        walk cache and 0 host walks; K5 on the run's recorded intervals
+        against its plain version and timed beside its first version's
+        loop of 131,072-row dispatches, in turns; the rates on the first
+        32,768 pairs, three rounds of the two in turns, untraced, SAM
+        byte-equal in every round; the same pairs in 4 batches (sampe.BATCH
+        lowered), SAM byte-equal to --engine native at that size, 0 host
+        walks and 0 refused values in every batch; and `samse` on end 1,
+        one line per read
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
@@ -77,7 +85,8 @@ limit.
 the call: the larger of the bytes the call must move over 3.35 TB/s and
 its integer operations over 67 Tops/s (the card's non-tensor-core rate);
 for the data-dependent kernels it counts the rows this run fetched (for
-lf_walk each distinct table row once, `walk_footprint`).  The chained
+lf_walk each distinct table row and sampled word once, `walk_footprint`,
+on the intervals `sampe` gave it).  The chained
 kernels (chase, lf_walk, search_step, search_chunk, width_pass) also get a
 latency bound: their dependent fetches times the one-warp step the probe
 measured.
@@ -108,12 +117,16 @@ N_PAIRS = 131_072               # half of one sampe batch (sampe.BATCH)
 RATE_PAIRS = 32_768             # the pairs sampe's rates are read on
 ROUNDS = 3                      # of every host-clock rate, in turns
 B_LANES = 1024
-WALK_PAIRS = 2_097_152          # 16 dispatches of the walker
+WALK_PAIRS = 2_097_152          # one wave of the walker
+OLD_DISPATCH = 131_072          # rows a dispatch of K5's first version
+MANY_BATCHES = 4                # sampe batches of the RATE_PAIRS run
 PROBE_STEPS, PROBE_DELTA = 256, 2048
 PROBE_LANES = [32, 256, 1024]   # 32: one warp, the fetch latency itself
 PROBE_TABLES = [("a", 500_000, 128),      # the TPU probe's shape, 256 MB
                 ("b", 1_000_000, 8),      # the smoke table's shape, 32 MB
                 ("c", 64_000_000, 8)]     # human scale, 2 GB
+TRACE_TRIES, TRACE_PAUSE_S = 4, 0.25   # profiler sessions, and the pause
+                                       # before each one after the first
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 REPO = pathlib.Path(__file__).resolve().parent
@@ -153,20 +166,37 @@ def device_us(prof, reps: int) -> dict:
             per_call = math.ceil(e.count / reps - 1e-9)
             out[e.key] = (e.self_device_time_total / e.count * per_call,
                           per_call)
-    if sum(us for us, _ in out.values()) <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return out
+    return out if sum(us for us, _ in out.values()) > 0 else {}
 
 
-def timed_ms(fn, reps: int) -> tuple[float, float]:
-    """(device ms, call ms) per call of fn over `reps` calls, after one
-    warm-up call.  Device ms is the summed time of the kernels one call
-    runs (torch.profiler, `device_us`); call ms is the CUDA-event span of
-    the calls, which at small sizes is set by the host launching them."""
+def traced(body, reps: int) -> dict:
+    """`device_us` of a profiler session around body(), which makes `reps`
+    equal calls.  On the H100 machine a trace loses the records made in a
+    short window about every 10 s, up to three back-to-back sessions in a
+    row (`python3 -m ibwa_tpu_torch.profiler_probe`), so a session that
+    saw nothing is made again after a pause, up to TRACE_TRIES sessions in
+    all; {} if none saw anything, and the caller then times with CUDA
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    for attempt in range(1, TRACE_TRIES + 1):
+        if attempt > 1:
+            time.sleep(TRACE_PAUSE_S)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        out = device_us(prof, reps)
+        if out:
+            return out
+        log(f"the profiler saw no device time in session {attempt} of "
+            f"{TRACE_TRIES}")
+    return {}
+
+
+def event_ms(fn, reps: int) -> float:
+    """ms per call of fn over `reps` calls: the CUDA-event span of the
+    calls, which at small sizes is set by the host launching them."""
+    import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -174,13 +204,34 @@ def timed_ms(fn, reps: int) -> tuple[float, float]:
         fn()
     end.record()
     torch.cuda.synchronize()
-    call_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    return start.elapsed_time(end) / reps
+
+
+def timed_ms(fn, reps: int) -> tuple[float, float]:
+    """(device ms, call ms) per call of fn over `reps` calls, after one
+    warm-up call.  Device ms is the summed time of the kernels one call
+    runs (torch.profiler, `traced`); call ms is `event_ms`, which stands
+    in for device ms where the profiler saw nothing."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    call_ms = event_ms(fn, reps)
+
+    def body():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    dev_us = sum(us for us, _ in device_us(prof, reps).values())
-    return dev_us / 1e3, call_ms
+
+    dev = traced(body, reps)
+    if not dev:
+        log(f"device ms {call_ms:.5f} is the CUDA-event span of {reps} calls")
+        return call_ms, call_ms
+    return sum(us for us, _ in dev.values()) / 1e3, call_ms
+
+
+def inputs(make, reps: int):
+    """An iterator of fresh inputs, one for every call `timed_ms(fn, reps)`
+    can make, for an fn that changes the input it is given."""
+    return iter([make() for _ in range(1 + reps * (1 + TRACE_TRIES))])
 
 
 def max_abs_err(got, want) -> int:
@@ -350,10 +401,10 @@ def check_search_step(fm, chunk: dict) -> dict:
         reps = 20
         ms = {}
         for n in (1, engine.SWITCH_K):
-            pool = iter([engine.clone_state(st) for _ in range(2 * reps + 1)])
+            pool = inputs(lambda: engine.clone_state(st), reps)
             ms[n], _ = timed_ms(lambda: engine.search_steps(
                 cfg, fm, seqs, next(pool), n), reps)
-        pool = iter([engine.clone_state(st) for _ in range(5)])
+        pool = inputs(lambda: engine.clone_state(st), 2)
         plain_ms, _ = timed_ms(
             lambda: plain(cfg, seqs, next(pool), engine.SWITCH_K), 2)
         # what these SWITCH_K steps must move, from the counters they
@@ -482,9 +533,9 @@ def check_lane_switch(fm, chunk: dict) -> tuple[dict, dict]:
         # ---- times, on the first switch of the chunk: every lane loads
         first = cases[0][1]
         reps = 20
-        pool = iter([first.clone() for _ in range(2 * reps + 1)])
+        pool = inputs(first.clone, reps)
         ms, call_ms = timed_ms(lambda: next(pool).switch(), reps)
-        pool = iter([first.clone() for _ in range(5)])
+        pool = inputs(first.clone, 2)
         plain_ms, plain_call_ms = timed_ms(
             lambda: next(pool).switch_plain(), 2)
         # must move, per loading lane: its three width rows in and out, the
@@ -506,37 +557,51 @@ def check_lane_switch(fm, chunk: dict) -> tuple[dict, dict]:
     return row, cases256
 
 
-def kernel_ms(prof, reps: int, name: str) -> float:
-    """Device ms per call of the kernels whose name holds `name`."""
-    return sum(us for key, (us, _) in device_us(prof, reps).items()
-               if name in key) / 1e3
+def kernel_ms(us: dict, name: str) -> float:
+    """Device ms per call of the kernels whose name holds `name`, from a
+    `traced` dict."""
+    return sum(v for key, (v, _) in us.items() if name in key) / 1e3
 
 
-def launch_chunk(cfg, fm, args, n_lanes: int, mode: int):
+def launch_chunk(cfg, fm, args, n_lanes: int, mode: int, big=None):
     """`engine.search_chunk` on width planes of its own (the kernel updates
-    them in place), in the kernel's `mode`: 1 as the engine runs it, 0
-    without the step's rows asked ahead."""
+    them in place; `big`, else made here), in the kernel's `mode`: 1 as
+    the engine runs it, 0 without the step's rows asked ahead."""
     import torch
     from ibwa_tpu_torch.align import engine
     seqs, lens, md, hs, ssq, bad = args
-    big = engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
+    if big is None:
+        big = engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
     return engine._launch_search_chunk(
         cfg, fm, seqs, big, lens, md, hs, bad, n_lanes,
         torch.cuda.current_stream().cuda_stream, mode)
 
 
 def time_search_chunk(cfg, fm, args, reps: int, mode: int) -> float:
-    """Device ms of one `search_chunk` launch on the chunk `args`."""
+    """Device ms of one `search_chunk` launch on the chunk `args`; where
+    the profiler sees nothing, the CUDA-event span of the launches alone,
+    on planes made before."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from ibwa_tpu_torch.align import engine
     n_lanes = min(B_LANES, args[1].shape[0])
     launch_chunk(cfg, fm, args, n_lanes, mode)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def body():
         for _ in range(reps):
             launch_chunk(cfg, fm, args, n_lanes, mode)
-        torch.cuda.synchronize()
-    return kernel_ms(prof, reps, "search_chunk_kernel")
+
+    ms = kernel_ms(traced(body, reps), "search_chunk_kernel")
+    if ms > 0:
+        return ms
+    seqs, lens, md, hs, ssq, bad = args
+    planes = iter([engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
+                   for _ in range(reps)])
+    ms = event_ms(lambda: launch_chunk(cfg, fm, args, n_lanes, mode,
+                                       next(planes)), reps)
+    log(f"search_chunk device ms {ms:.5f} is the CUDA-event span of {reps} "
+        f"launches")
+    return ms
 
 
 def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
@@ -550,7 +615,6 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
     ahead: hit counts, fallback flags, the step count and the hits below
     each count, bitwise.  Timed on the smoke chunk beside both loops."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.align import engine
     cfg0, args0 = chunk["cfg"], chunk["args"]
@@ -576,10 +640,11 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
         return (f"{name} ({lens.shape[0]} reads, {n_lanes} lanes, steps "
                 f"{want[3]}, fallback {int(want[2].sum())})")
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        want = engine.run_search_plain(cfg0, fm, *args0, n_lanes=B_LANES)
-        torch.cuda.synchronize()
-    plain_all = device_us(prof, 1)
+    plain_run = lambda: engine.run_search_plain(cfg0, fm, *args0,
+                                                n_lanes=B_LANES)
+    plain_out = []
+    plain_all = traced(lambda: plain_out.append(plain_run()), 1)
+    want = plain_out[-1]
     seen = [hold("smoke against the plain loop", cfg0, args0, B_LANES, want),
             hold("smoke", cfg0, args0, B_LANES, engine.run_search_phased(
                 cfg0, fm, *args0, n_lanes=B_LANES))]
@@ -615,14 +680,17 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
     reps = 10
     ms = time_search_chunk(cfg0, fm, args0, reps, 1)
     ms_1k = time_search_chunk(cfg1k, fm, args0, 4, 1)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            engine.run_search_phased(cfg0, fm, *args0, n_lanes=B_LANES)
-        torch.cuda.synchronize()
-    phased = {k: kernel_ms(prof, 2, k) for k in (
+    phased_run = lambda: engine.run_search_phased(cfg0, fm, *args0,
+                                                  n_lanes=B_LANES)
+    phased_us = traced(lambda: (phased_run(), phased_run()), 2)
+    phased = {k: kernel_ms(phased_us, k) for k in (
         "lane_switch_kernel", "search_steps_kernel")}
+    if not phased_us:   # the loop's span, the host's waits included
+        phased = {"the loop's CUDA-event span": event_ms(phased_run, 2)}
     plain_ms = sum(us for us, _ in plain_all.values()) / 1e3
     plain_n = sum(n for _, n in plain_all.values())
+    if not plain_all:
+        plain_ms, plain_n = event_ms(plain_run, 1), "(not traced)"
     # must move, from this run's counters: the FM rows the steps needed
     # (the occ4 bounds' and the E-chain's); per lane iteration a read base
     # and two meta words; per recorded hit its three words and one strand's
@@ -646,8 +714,8 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
         f"{total}, FM rows needed {rows}; "
         f"{ms * 1e3 / longest:.4f} us per iteration of the longest lane; the "
         f"phased kernels' loop of the same chunk, {phases} phases: "
-        f"lane_switch {phased['lane_switch_kernel']:.5f} + search_step "
-        f"{phased['search_steps_kernel']:.5f} ms; the plain loop "
+        f"{' + '.join(f'{k} {v:.5f}' for k, v in phased.items())} ms; the "
+        f"plain loop "
         f"{plain_ms:.5f} ms in {plain_n} launches; bound {b['bound_ms']:.5f} "
         f"({b['bound_by']}, {moved} bytes, operations estimated)")
     kernels.reset_launches()
@@ -724,52 +792,122 @@ def walk_edges(fms) -> tuple:
     return strand, rows
 
 
-def walk_footprint(fm, calls, mask: int, lanes: int) -> dict:
-    """What the LF walks of `calls` (a list of (strand, rows) int64
-    tensors on fm's device, each cut into dispatches of `lanes`) must
-    fetch, found by the plain step on the card: their LF steps, the
-    distinct table rows they read (each must come from memory at least
-    once, and need not come more than once), and the sum over dispatches
-    of each one's longest walk (a dispatch lasts at least its longest
-    chain of dependent fetches)."""
+def walk_footprint(fm, strand, k, mask: int) -> dict:
+    """What the LF walks from rows `k` of strands `strand` (int64 tensors
+    on fm's device) must fetch, found by the plain step on the card: their
+    LF steps, the distinct table rows they read and the distinct sampled
+    words they end on (each must come from memory at least once, and need
+    not come more than once), the longest walk (a persistent launch lasts
+    at least that chain of dependent fetches), and the sum over the first
+    version's dispatches of OLD_DISPATCH rows of each one's longest walk
+    (each of them lasted at least that)."""
     import torch
     from ibwa_tpu_torch.fm import walk
     seen = torch.zeros(fm.blocks.shape[0], dtype=torch.bool,
                        device=fm.device)
     shift = fm.intv.bit_length() - 1
-    steps = chain = 0
-    for strand, k in calls:
-        add = torch.zeros_like(k)
-        active = (k & mask) != 0
-        while bool(active.any()):
-            # the row lf_step_plain reads (device._gather_block)
-            ka = torch.clamp(k - (k > fm.primary[strand]).to(torch.int64),
-                             max=fm.seq_len - 1)
-            row = strand * fm.n_blk + torch.clamp(ka >> shift,
-                                                  max=fm.n_blk - 1)
-            seen[row[active]] = True
-            k = torch.where(active, walk.lf_step_plain(fm, strand, k), k)
-            add += active.to(torch.int64)
-            active &= (k & mask) != 0
-        steps += int(add.sum())
-        chain += sum(int(add[lo:lo + lanes].max())
-                     for lo in range(0, len(add), lanes))
-    return {"steps": steps, "rows": int(seen.sum()), "chain": chain,
+    add = torch.zeros_like(k)
+    active = (k & mask) != 0
+    while bool(active.any()):
+        # the row lf_step_plain reads (device._gather_block)
+        ka = torch.clamp(k - (k > fm.primary[strand]).to(torch.int64),
+                         max=fm.seq_len - 1)
+        row = strand * fm.n_blk + torch.clamp(ka >> shift, max=fm.n_blk - 1)
+        seen[row[active]] = True
+        k = torch.where(active, walk.lf_step_plain(fm, strand, k), k)
+        add += active.to(torch.int64)
+        active &= (k & mask) != 0
+    slots = torch.unique(strand * (1 << 32) + (k >> mask.bit_length()))
+    return {"steps": int(add.sum()), "rows": int(seen.sum()),
+            "slots": len(slots), "longest": int(add.max()),
+            "chain": sum(int(add[lo:lo + OLD_DISPATCH].max())
+                         for lo in range(0, len(add), OLD_DISPATCH)),
             "row_bytes": fm.blocks.shape[1] * fm.blocks.element_size()}
 
 
-def walk_bound(n: int, fp: dict, wpb: int) -> dict:
-    """K5's bound on n lanes: each lane's strand and row read and its
-    (steps, row) written as u32, each distinct table row fetched once;
-    ~6 integer operations per word of a row and ~20 more per step."""
-    return bound(16 * n + fp["rows"] * fp["row_bytes"],
-                 fp["steps"] * (6 * wpb + 20))
+def walk_bound(n_iv: int, n_rows: int, fp: dict, wpb: int,
+               warp_us: float) -> dict:
+    """K5's bounds on n_iv intervals of n_rows rows: each interval's
+    strand and first row (u32) and its `off` entry (int64) read, a u32
+    value a row written, each distinct table row and sampled word fetched
+    once; ~6 integer operations per word of a row and ~20 more per step;
+    and the latency of its longest walk at `warp_us` a dependent fetch."""
+    moved = (16 * n_iv + 8 + 4 * n_rows + fp["rows"] * fp["row_bytes"]
+             + 4 * fp["slots"])
+    ops = fp["steps"] * (6 * wpb + 20)
+    return {**bound(moved, ops),
+            "bytes_bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": ops / INT_OPS_PER_S * 1e3,
+            "latency_bound_ms": fp["longest"] * warp_us / 1e3}
+
+
+def walk_case(walker, strand, ks, ls) -> dict:
+    """One set of intervals on the card, as `DeviceWalker.resolve_intervals`
+    uploads them: the intervals, `off`, and the rows expanded on the card
+    for the first version (int64 strand and row, as it takes them)."""
+    import numpy as np
+    import torch
+    dev = walker.fm.device
+    off = np.zeros(len(ks) + 1, dtype=np.int64)
+    np.cumsum(ls.astype(np.int64) - ks + 1, out=off[1:])
+    iv = torch.from_numpy(np.stack([strand.astype(np.uint32),
+                                    ks.astype(np.uint32)]).view(np.int32))
+    iv, off_t = iv.to(dev), torch.from_numpy(off).to(dev)
+    widths = off_t[1:] - off_t[:-1]
+    rows = torch.arange(int(off[-1]), device=dev) - torch.repeat_interleave(
+        off_t[:-1], widths)
+    return {"iv": iv, "off": off_t, "n": int(off[-1]),
+            "strand": torch.repeat_interleave(iv[0].to(torch.int64), widths),
+            "k": torch.repeat_interleave(iv[1].to(torch.int64) & 0xFFFFFFFF,
+                                         widths) + rows}
+
+
+def old_dispatch_loop(fm, case: dict, mask: int, lanes: int) -> None:
+    """K5's first version on a case's rows, as PR 2-6 ran it on `sampe`'s
+    path: `lf_walk` on slices of `lanes` rows (the lookup, on the host,
+    not included)."""
+    from ibwa_tpu_torch.fm import walk
+    for lo in range(0, case["n"], lanes):
+        walk.lf_walk(fm, case["strand"][lo:lo + lanes],
+                     case["k"][lo:lo + lanes], mask)
+
+
+def time_walk(walker, case: dict, lanes: int, reps: int) -> dict:
+    """Device ms per call, from CUDA events around `reps` calls after a
+    warm-up, of the new K5 (one launch on the case's rows) and of the
+    first version's loop of dispatches on the same rows, in turns (new,
+    old, old, new) in one process; and of the plain version, one call.
+    Events, not the profiler: a session can miss a single launch
+    altogether (`traced`)."""
+    import torch
+    from ibwa_tpu_torch.fm import walk
+    mask = walker.sa_intv - 1
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (walker.fm, walker.sampled, case["iv"], case["off"], 0,
+            case["n"], mask)
+    calls = {"new": lambda: walk._launch_resolve(*args, stream),
+             "old": lambda: old_dispatch_loop(walker.fm, case, mask, lanes)}
+
+    times = {"new": [], "old": []}
+    for name in ("new", "old", "old", "new"):
+        event_ms(calls[name], 1)
+        times[name].append(event_ms(calls[name], reps))
+    return {"ms": statistics.mean(times["new"]),
+            "old_ms": statistics.mean(times["old"]),
+            "ms_readings": times["new"], "old_ms_readings": times["old"],
+            "old_launches": -(-case["n"] // lanes),
+            "plain_ms": event_ms(lambda: walk.resolve_intervals_plain(*args),
+                                 1)}
 
 
 def check_walk(fms, dev) -> dict:
-    """K5 against lf_walk_plain, bitwise on (add, kfin), for 131,072 random
-    (strand, row) pairs plus the edge rows, at block intervals 32, 64 and
-    128; timed at 64, the default table."""
+    """K5 against its plain version, bitwise, at block intervals 32, 64
+    and 128: on 131,072 random (strand, row) pairs plus the edge rows, as
+    intervals of width 1, and on 20,000 random intervals of widths 1 to
+    256 (the first version's (add, kfin) against lf_walk_plain on the
+    random rows too); on the random rows at 64, the default table, the
+    new kernel timed beside the first version's one dispatch, with the
+    steps, the longest walk and the bounds."""
     import numpy as np
     import torch
     from ibwa_tpu_torch import kernels
@@ -779,40 +917,63 @@ def check_walk(fms, dev) -> dict:
     es, ek = walk_edges(fms)
     rows = np.concatenate([rng.integers(0, fms[0].seq_len + 1, 131072), ek])
     strand = np.concatenate([rng.integers(0, 2, 131072), es])
-    t = lambda a: torch.from_numpy(a.astype(np.int64)).to(dev)
-    ts, tk = t(strand), t(rows)
+    w = rng.integers(1, 257, 20000)
+    wks = rng.integers(0, fms[0].seq_len + 1 - w)
+    wide = (rng.integers(0, 2, 20000), wks, wks + w - 1)
     mask = fms[0].sa_intv - 1
     row = {}
     for intv in (32, 128, 64):
-        fm = build_device_pair(fms[0], fms[1], dev, intv=intv)
-        want = walk.lf_walk_plain(fm, ts, tk, mask)
-        got = walk.lf_walk(fm, ts, tk, mask)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
+        walker = walk.DeviceWalker.from_table(
+            build_device_pair(fms[0], fms[1], dev, intv=intv),
+            (fms[0].sa, fms[1].sa), fms[0].sa_intv)
+        fm = walker.fm
+        stats = {}
+        for label, (s_, k_, l_) in (("random rows", (strand, rows, rows)),
+                                    ("random intervals", wide)):
+            case = walk_case(walker, s_, k_, l_)
+            want, _ = walk.resolve_intervals_plain(
+                fm, walker.sampled, case["iv"], case["off"], 0, case["n"],
+                mask)
+            got, st = walk.lf_resolve(fm, walker.sampled, case["iv"],
+                                      case["off"], 0, case["n"], mask)
+            torch.cuda.synchronize()
+            err = max_abs_err([got], [want])
+            if err:
+                raise AssertionError(f"K5 intv={intv} {label}: kernel != "
+                                     f"plain (max abs err {err})")
+            stats[label] = st.tolist()
+            log(f"K5 lf_walk intv={intv} {label}: {case['n']} rows of "
+                f"{case['iv'].shape[1]} intervals bitwise equal to the plain "
+                f"version; queue {stats[label][0]}, {stats[label][1]} steps, "
+                f"longest walk {stats[label][2]}")
+        case = walk_case(walker, strand, rows, rows)
+        add, kfin = walk.lf_walk(fm, case["strand"], case["k"], mask)
+        err = max_abs_err((add, kfin),
+                          walk.lf_walk_plain(fm, case["strand"], case["k"],
+                                             mask))
         if err:
-            raise AssertionError(f"lf_walk intv={intv}: kernel != plain "
-                                 f"(max abs err {err})")
+            raise AssertionError(f"K5's first version intv={intv}: kernel != "
+                                 f"plain (max abs err {err})")
         if intv == 64:
-            ms, call_ms = timed_ms(lambda: walk.lf_walk(fm, ts, tk, mask), 20)
-            plain_ms, _ = timed_ms(
-                lambda: walk.lf_walk_plain(fm, ts, tk, mask), 2)
-            fp = walk_footprint(fm, [(ts, tk)], mask, len(rows))
-            steps = int(got[0].sum())
-            if fp["steps"] != steps or fp["chain"] != int(got[0].max()):
+            t = time_walk(walker, case, case["n"], 20)
+            plain_ms = t["plain_ms"]
+            fp = walk_footprint(fm, case["strand"], case["k"], mask)
+            if [fp["steps"], fp["longest"]] != stats["random rows"][1:]:
                 raise AssertionError(f"walk_footprint {fp} against the "
-                                     f"kernel's {steps} steps")
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   **walk_bound(len(rows), fp, fm.wpb),
-                   "library_ms": None, "_longest": int(got[0].max())}
-            log(f"K5 lf_walk n={len(rows)} intv=64: bitwise equal; {steps} "
-                f"steps in all, {fp['rows']} distinct table rows of "
-                f"{fm.blocks.shape[0]} read, longest walk "
-                f"{int(got[0].max())}; device ms/call kernel {ms:.5f}, plain "
-                f"{plain_ms:.5f}; call ms kernel {call_ms:.5f}; bound "
-                f"{row['bound_ms']:.5f} ({row['bound_by']})")
-        else:
-            log(f"K5 lf_walk n={len(rows)} intv={intv}: bitwise equal")
-        del fm
+                                     f"kernel's {stats['random rows']}")
+            row = {"random_rows": case["n"], "random_ms": t["ms"],
+                   "random_first_version_ms": t["old_ms"],
+                   "random_plain_ms": plain_ms, "random_steps": fp["steps"],
+                   "random_longest": fp["longest"],
+                   "_random_fp": fp, "_random_n_iv": case["n"]}
+            log(f"K5 lf_walk random rows intv=64: {fp['steps']} steps, "
+                f"longest walk {fp['longest']}, {fp['rows']} distinct table "
+                f"rows of {fm.blocks.shape[0]}, {fp['slots']} sampled words; "
+                f"device ms new {t['ms']:.5f} (1 launch; readings "
+                f"{t['ms_readings']}), first version {t['old_ms']:.5f} "
+                f"({t['old_launches']} launch; readings "
+                f"{t['old_ms_readings']}), plain {plain_ms:.5f}")
+        del walker, fm, case
     kernels.reset_launches()
     return row
 
@@ -859,10 +1020,12 @@ def run_walker(fms, dev) -> None:
         bad = int((got != want).sum())
         raise AssertionError(f"DeviceWalker.resolve differs from the host "
                              f"sa_lookup on {bad}/{WALK_PAIRS} pairs")
-    log(f"walker: {WALK_PAIRS} pairs in {-(-WALK_PAIRS // walker.lanes)} "
-        f"dispatches equal to the native sa_lookup; wall DeviceWalker."
-        f"resolve {dev_s:.3f} s ({WALK_PAIRS / dev_s:.0f} rows/s), native "
-        f"sa_lookup {host_s:.3f} s ({WALK_PAIRS / host_s:.0f} rows/s)")
+    last = walker.last
+    log(f"walker: {WALK_PAIRS} pairs in {last['waves']} wave, "
+        f"{last['launches']} launch, equal to the native sa_lookup; wall "
+        f"DeviceWalker.resolve {dev_s:.3f} s ({WALK_PAIRS / dev_s:.0f} "
+        f"rows/s), native sa_lookup {host_s:.3f} s "
+        f"({WALK_PAIRS / host_s:.0f} rows/s)")
 
 
 def make_inputs() -> tuple[pathlib.Path, pathlib.Path]:
@@ -937,7 +1100,6 @@ def profile_chunk(fms, fm, chunk: dict) -> None:
     step's prefetch on and off in turns; and the native search of the same
     reads."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.align import engine
     n = len(chunk["seqs"])
@@ -982,12 +1144,18 @@ def profile_chunk(fms, fm, chunk: dict) -> None:
                              f"{phased_steps}")
     host_us = {k: round(v / phases * 1e6, 1) for k, v in host_s.items()}
 
-    kernels.reset_launches()
-    reps = 10   # a trace can drop a few of its first records (device_us)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    reps = 10   # a trace can drop a few of its records (device_us)
+
+    def body():
+        kernels.reset_launches()
         for _ in range(reps):
             run()
             torch.cuda.synchronize()
+
+    traced_us = traced(body, reps)
+    if not traced_us:
+        raise AssertionError(f"the profiler saw no device time in "
+                             f"{TRACE_TRIES} sessions of the chunk")
     counts = {k: v // reps for k, v in kernels.launches.items()}
     if set(counts) != set(ALN_KERNELS) or any(
             counts[k] != 1 for k in ALN_KERNELS):
@@ -1002,7 +1170,7 @@ def profile_chunk(fms, fm, chunk: dict) -> None:
              "copies": ("memcpy", "memset")}
     dev_us = {k: 0.0 for k in (*kinds, "torch elementwise/reduce")}
     seen = dict.fromkeys(dev_us, 0)
-    for key, (us, launches) in device_us(prof, reps).items():
+    for key, (us, launches) in traced_us.items():
         kind = next((k for k, pats in kinds.items()
                      if any(pat in key.lower() for pat in pats)),
                     "torch elementwise/reduce")
@@ -1228,31 +1396,38 @@ def check_dispatch_ahead(fms, fqs, dev) -> None:
 def sampe_run(args: list[str], out: pathlib.Path, device: bool
               ) -> tuple[float, list[tuple], dict]:
     """One `sampe` run: (wall s, the prefill lines' numbers, launches).
-    The device route must launch lf_walk and nothing else, prefill every
-    batch and leave no row to the host walks; the native route launches
-    nothing."""
+    The device route must launch lf_walk and nothing else, once a wave,
+    prefill every batch, and report 0 values refused by the cache and 0
+    host walks in every batch and after the last; the native route
+    launches nothing."""
     from ibwa_tpu_torch import kernels
     kernels.reset_launches()
     wall, err = run_cli("sampe", args, out)
     got = dict(kernels.launches)
     batches = [tuple(float(x) for x in m.groups())
                for m in PREFILL_LINE.finditer(err)]
+    last = [int(m.group(1)) for m in LAST_LINE.finditer(err)]
     if not device:
-        if got or batches:
+        if got or batches or last:
             raise AssertionError(f"sampe --engine native launched {got}")
         return wall, batches, got
-    if set(got) != {"lf_walk"} or got["lf_walk"] <= 0:
+    if set(got) != {"lf_walk"} or got["lf_walk"] != sum(b[2] for b in batches):
         raise AssertionError(f"sampe on the card launched {got}, not "
-                             f"lf_walk alone")
-    if not batches or any(b[0] <= 0 or b[2] or b[3] for b in batches):
-        raise AssertionError(f"a batch's SA walks were not all prefilled "
-                             f"on the card:\n{err}")
+                             f"lf_walk alone once a wave")
+    if not batches or last != [0] or any(b[0] <= 0 or b[3] or b[4]
+                                         for b in batches):
+        raise AssertionError(f"a batch's SA walks were not all done on the "
+                             f"card:\n{err}")
     return wall, batches, got
 
 
 PREFILL_LINE = re.compile(
-    r"\[sai2sam_pe\] prefill (\d+) rows in (\d+) dispatches, (\d+) rows "
-    r"of (\d+) intervals left to the host walks, ([\d.]+) s")
+    r"\[sai2sam_pe\] prefill (\d+) rows in (\d+) waves, (\d+) launches; "
+    r"(\d+) values refused by the cache, (\d+) host walks since the last "
+    r"batch; ([\d.]+) s \(intervals ([\d.]+) s, walker ([\d.]+) s, cache "
+    r"([\d.]+) s\)")
+LAST_LINE = re.compile(r"\[sai2sam_pe\] (\d+) host walks after the last "
+                       r"prefill")
 
 
 def first_reads(fq: pathlib.Path, n: int, out: pathlib.Path) -> None:
@@ -1264,16 +1439,19 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
     """`aln --device cuda` on both ends of the pairs; `sampe -R` on all
     of them with the SA walks on the card (K5 prefilling each batch) and
     with `--engine native` (host walks), SAM byte-equal, the device run
-    traced for K5's time on sampe's own rows and the rows it walked
-    recorded for K5's bound; then the rates, ROUNDS rounds of the two
-    routes in turns on the first RATE_PAIRS pairs, untraced, SAM
-    byte-equal in every round; then `samse` on end 1: one line per read.
-    Returns K5's row of the kernel table from this path."""
+    with its intervals recorded;
+    on those intervals K5 against its plain version (bitwise) and timed
+    beside the first version's loop of dispatches, with its bounds; then
+    the rates, ROUNDS rounds of the two routes in turns on the first
+    RATE_PAIRS pairs, untraced, SAM byte-equal in every round; the same
+    pairs in MANY_BATCHES batches (sampe.BATCH lowered), SAM byte-equal;
+    then `samse` on end 1: one line per read.  Returns K5's row of the
+    kernel table from this path."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.fm import walk
+    from ibwa_tpu_torch.sam import sampe
     sais = [WORK / f"pairs_{e}.sai" for e in (1, 2)]
     for fq, out in zip(fqs, sais):
         kernels.reset_launches()
@@ -1288,21 +1466,20 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
     args = [str(fa), *map(str, sais), *map(str, fqs)]
     sam = {name: WORK / f"pairs_{name}.sam" for name in routes}
 
-    # all the pairs: the SAM, K5's launches and time, and the rows it walks
+    # all the pairs: the SAM, K5's launches and time, and its intervals
     native_s, _, _ = sampe_run(routes["native"] + args, sam["native"], False)
-    calls, resolve = [], walk.DeviceWalker.resolve
+    calls, resolve = [], walk.DeviceWalker.resolve_intervals
 
-    def recorded(self, strand, rows):
-        calls.append((self, np.array(strand), np.array(rows)))
-        return resolve(self, strand, rows)
+    def recorded(self, strand, ks, ls, **kw):
+        calls.append((self, np.array(strand), np.array(ks), np.array(ls)))
+        return resolve(self, strand, ks, ls, **kw)
 
-    walk.DeviceWalker.resolve = recorded
+    walk.DeviceWalker.resolve_intervals = recorded
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            traced_s, prefill, launches = sampe_run(
-                routes["device"] + args, sam["device"], True)
+        device_s, prefill, launches = sampe_run(
+            routes["device"] + args, sam["device"], True)
     finally:
-        walk.DeviceWalker.resolve = resolve
+        walk.DeviceWalker.resolve_intervals = resolve
     want = sam["native"].read_bytes()
     if sam["device"].read_bytes() != want:
         raise AssertionError("sampe SAM with K5's walks differs from the "
@@ -1311,37 +1488,59 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
     mapped = sum(1 for f in recs if not int(f[1]) & 4)
     if len(recs) != 2 * N_PAIRS or mapped < N_PAIRS:
         raise AssertionError(f"sampe: {len(recs)} records, {mapped} mapped")
-    mean_us = [e.self_device_time_total / e.count
-               for e in prof.key_averages()
-               if "lf_walk_kernel" in e.key and e.count]
-    if not mean_us:
-        raise AssertionError("the trace saw no lf_walk launch")
-    k5_ms = mean_us[0] * launches["lf_walk"] / 1e3
-    walker = calls[0][0]
-    if any(c[0] is not walker for c in calls):
-        raise AssertionError("one db, so one walker")
-    t = lambda a: torch.from_numpy(a.astype(np.int64)).to(walker.fm.device)
-    fp = walk_footprint(walker.fm, [(t(s), t(r)) for _, s, r in calls],
-                        walker.sa_intv - 1, walker.lanes)
-    wpb = walker.fm.wpb
-    del calls, walker
-    rows = sum(int(b[0]) for b in prefill)
-    bd = walk_bound(rows, fp, wpb)
-    lat_ms = fp["chain"] * warp_us / 1e3
-    per_batch = " + ".join(f"{int(b[0])} rows in {int(b[1])} dispatches, "
-                           f"{b[4]:.4f} s" for b in prefill)
+    if len(calls) != 1:
+        raise AssertionError(f"one db and one batch, so one call: "
+                             f"{len(calls)}")
+    walker, strand, ks, ls = calls[0]
+    del calls
+    case = walk_case(walker, strand, ks, ls)
+    mask = walker.sa_intv - 1
+    got, stats = walk.lf_resolve(walker.fm, walker.sampled, case["iv"],
+                                 case["off"], 0, case["n"], mask)
+    err = max_abs_err([got], [walk.resolve_intervals_plain(
+        walker.fm, walker.sampled, case["iv"], case["off"], 0, case["n"],
+        mask)[0]])
+    if err:
+        raise AssertionError(f"K5 on sampe's rows: kernel != plain (max abs "
+                             f"err {err})")
+    t = time_walk(walker, case, OLD_DISPATCH, 5)
+    plain_ms = t["plain_ms"]
+    fp = walk_footprint(walker.fm, case["strand"], case["k"], mask)
+    queue, steps, longest = stats.tolist()
+    if (steps, longest) != (fp["steps"], fp["longest"]):
+        raise AssertionError(f"K5's counters {stats.tolist()} against "
+                             f"walk_footprint {fp}")
+    n_iv, rows = case["iv"].shape[1], case["n"]
+    bd = walk_bound(n_iv, rows, fp, walker.fm.wpb, warp_us)
+    old_lat = fp["chain"] * warp_us / 1e3
+    del walker, case, got
+    torch.cuda.empty_cache()
+    if rows != sum(int(b[0]) for b in prefill):
+        raise AssertionError("the recorded intervals are not the prefill's")
+    per_batch = " + ".join(f"{int(b[0])} rows in {int(b[1])} wave, "
+                           f"{int(b[2])} launch, {b[5]:.4f} s (unique "
+                           f"intervals {b[6]:.4f}, walker {b[7]:.4f}, cache "
+                           f"{b[8]:.4f})" for b in prefill)
     log(f"sampe -R on {N_PAIRS} pairs: SAM byte-equal between K5's walks "
         f"and the host walks ({len(want)} bytes, {len(recs)} records, "
-        f"{mapped} mapped); host walks {native_s:.3f} s; K5's walks under "
-        f"the profiler {traced_s:.3f} s (no rate: traced), the prefill "
-        f"{per_batch}, no row left to the host walks; K5 "
-        f"{launches['lf_walk']} launches, device ms "
-        f"{k5_ms:.5f}; its walks {fp['steps']} LF steps "
-        f"({fp['steps'] / rows:.2f} a row) over {fp['rows']} distinct table "
-        f"rows of {fp['row_bytes']} B, the longest walk of each dispatch "
-        f"summed {fp['chain']}; byte bound {bd['bound_ms']:.5f} "
-        f"({bd['bound_by']}), latency bound {fp['chain']} x {warp_us:.3f} us "
-        f"= {lat_ms:.5f} ms")
+        f"{mapped} mapped); host walks {native_s:.3f} s, K5's walks "
+        f"{device_s:.3f} s (one run each: see the rates below); the prefill "
+        f"{per_batch}; 0 values refused, 0 host walks; K5 "
+        f"{launches['lf_walk']} launch")
+    log(f"K5 on sampe's {rows} rows of {n_iv} intervals: bitwise equal to "
+        f"the plain version ({plain_ms:.5f} ms); its queue handed out "
+        f"{queue} rows, {steps} LF steps ({steps / rows:.2f} a row, as the "
+        f"plain step counts them) over {fp['rows']} distinct table "
+        f"rows of {fp['row_bytes']} B and {fp['slots']} sampled words, "
+        f"longest walk {longest}; device ms new {t['ms']:.5f} in 1 "
+        f"launch (readings {t['ms_readings']}) against the first version's "
+        f"{t['old_ms']:.5f} in {t['old_launches']} dispatches (readings "
+        f"{t['old_ms_readings']}), in turns in this call; bounds "
+        f"{bd['bytes_bound_ms']:.5f} ms by bytes, {bd['ops_bound_ms']:.5f} by "
+        f"operations, {bd['latency_bound_ms']:.5f} by latency "
+        f"({fp['longest']} x {warp_us:.3f} us; the first version's: the "
+        f"longest walk of each dispatch summed {fp['chain']} x "
+        f"{warp_us:.3f} us = {old_lat:.5f} ms)")
 
     # the rates: the first RATE_PAIRS pairs, ROUNDS rounds in turns
     sub_fq = [WORK / f"rate_pairs_{e}.fq" for e in (1, 2)]
@@ -1351,14 +1550,16 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
         run_aln([str(fa), str(sfq), "--device", "cuda"], sai_)
     args = [str(fa), *map(str, sub_sai), *map(str, sub_fq)]
     walls = {name: [] for name in routes}
-    pre_s, want = [], None
+    pre_s, splits, want = [], [], None
     for r in range(ROUNDS):
         for name in routes if r % 2 == 0 else list(routes)[::-1]:
             wall, batches, _ = sampe_run(routes[name] + args, sam[name],
                                          name == "device")
             walls[name].append(wall)
             if batches:
-                pre_s.append(sum(b[4] for b in batches))
+                pre_s.append(sum(b[5] for b in batches))
+                splits.append(tuple(sum(b[i] for b in batches)
+                                    for i in (6, 7, 8)))
         sams = {name: sam[name].read_bytes() for name in routes}
         if sams["device"] != sams["native"]:
             raise AssertionError(f"round {r}: sampe SAM with K5's walks "
@@ -1373,7 +1574,31 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
         f"K5's walks {spread([n / w for w in walls['device']])}, with the "
         f"host walks {spread([n / w for w in walls['native']])}; the "
         f"prefill {' / '.join(f'{p:.4f}' for p in pre_s)} s = "
-        f"{' / '.join(f'{x:.4f}' for x in share)} of the run")
+        f"{' / '.join(f'{x:.4f}' for x in share)} of the run (unique "
+        f"intervals / walker / cache: "
+        f"{'; '.join(' / '.join(f'{x:.4f}' for x in t) for t in splits)} s)")
+
+    # the same pairs in several batches: each batch's prefill empties the
+    # cache of the one before and leaves nothing to the host
+    batch = sampe.BATCH
+    sampe.BATCH = RATE_PAIRS // MANY_BATCHES
+    try:
+        many = {}
+        for name in routes:
+            _, got_batches, _ = sampe_run(routes[name] + args, sam[name],
+                                          name == "device")
+            many[name] = sam[name].read_bytes()
+            batches = got_batches if name == "device" else batches
+    finally:
+        sampe.BATCH = batch
+    if many["device"] != many["native"] or len(batches) != MANY_BATCHES:
+        raise AssertionError(f"sampe in {len(batches)} batches: SAM with "
+                             f"K5's walks differs from the host walks'")
+    log(f"sampe -R on the first {RATE_PAIRS} pairs in {MANY_BATCHES} batches "
+        f"of {RATE_PAIRS // MANY_BATCHES}: SAM byte-equal to --engine native "
+        f"at the same batch size; the prefills "
+        f"{' + '.join(str(int(b[0])) for b in batches)} rows, 0 values "
+        f"refused and 0 host walks in every batch and after the last")
     out = WORK / "pairs_1.samse.sam"
     wall, _ = run_cli("samse", [str(fa), str(sais[0]), str(fqs[0])], out)
     lines = out.read_bytes().splitlines()
@@ -1383,10 +1608,14 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
                              f"for {N_PAIRS} reads")
     log(f"samse on end 1: exit 0, {head} header lines + {N_PAIRS} records, "
         f"{N_PAIRS / wall:.1f} reads/s end to end ({wall:.3f} s)")
-    return {"launches": launches["lf_walk"], "sampe_ms": k5_ms,
-            "sampe_rows": rows, "sampe_steps": fp["steps"],
-            "sampe_rows_fetched": fp["rows"], "sampe_bound_ms": bd["bound_ms"],
-            "sampe_bound_by": bd["bound_by"], "sampe_latency_bound_ms": lat_ms}
+    return {"launches": launches["lf_walk"], "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": plain_ms, **bd, "library_ms": None,
+            "first_version_ms": t["old_ms"],
+            "first_version_launches": t["old_launches"],
+            "first_version_latency_bound_ms": old_lat,
+            "rows": rows, "intervals": n_iv,
+            "steps": fp["steps"], "longest_walk": fp["longest"],
+            "rows_fetched": fp["rows"], "sampled_words": fp["slots"]}
 
 
 SOURCES = {
@@ -1505,8 +1734,18 @@ def main() -> int:
     # (one warp's marginal time per step on that table)
     warp_us = {r["table"]: r["marginal_us_per_step"] for r in records
                if r["variant"] == "chase" and r["lanes"] == 32}
-    longest = rows["lf_walk"].pop("_longest")
-    rows["lf_walk"]["latency_bound_ms"] = longest * warp_us["b"] / 1e3
+    k5 = rows["lf_walk"]
+    fp = k5.pop("_random_fp")
+    rb = walk_bound(k5.pop("_random_n_iv"), k5["random_rows"], fp,
+                    fm.wpb, warp_us["b"])
+    longest = fp["longest"]
+    k5.update(random_bound_ms=rb["bound_ms"], random_bound_by=rb["bound_by"],
+              random_latency_bound_ms=rb["latency_bound_ms"])
+    log(f"K5 random rows: bounds {rb['bytes_bound_ms']:.5f} ms by bytes, "
+        f"{rb['ops_bound_ms']:.5f} by operations, "
+        f"{rb['latency_bound_ms']:.5f} by latency ({longest} x "
+        f"{warp_us['b']:.3f} us); new {k5['random_ms']:.5f} in 1 launch, "
+        f"first version {k5['random_first_version_ms']:.5f}")
     # a search step's occ4 rows depend on the pop the step before left, and
     # the E-chain's occ1 rows on them: 1 to E_UNROLL dependent fetches
     from ibwa_tpu_torch.align import engine

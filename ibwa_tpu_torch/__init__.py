@@ -22,9 +22,11 @@ Kernels (CUDA C++ for sm_90a, built at first use by `kernels.py`):
 * `csrc/chase.cu` — K3 `chase` and K4 `chase_mw`, the dependent row-fetch
   probe (replaces the Pallas kernels `scripts/bench_chase.py::chase_pallas`
   and `chase_pallas_mw`)
-* `csrc/lf_walk.cu` — K5, the LF walk to the nearest sampled SA row
-  (replaces the XLA loop `ibwa_tpu/fm/walk.py::_lf_walk`); on `sampe`'s
-  path it prefills every batch's SA walks
+* `csrc/lf_walk.cu` — K5, SA intervals in, SA values out: the rows, the
+  LF walks to the nearest sampled row and the sampled-array lookup in one
+  persistent launch (replaces the XLA loop `ibwa_tpu/fm/walk.py::_lf_walk`
+  and the lookup its caller did on the host); on `sampe`'s path it
+  prefills every batch's SA walks
 * `csrc/width_pass.cu` — K6, the width / bid / meta planes of a chunk of
   reads (replaces the XLA `engine_jax._compute_widths` + `_pack_meta`)
 * `csrc/lane_switch.cu` — K7, the switch phase of the persistent lanes:

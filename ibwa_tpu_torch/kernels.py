@@ -57,6 +57,11 @@ _SIGNATURES = {
     # blocks, primary, L2, strand, k0, add, kfin, n, seq_len, n_blk, intv,
     # intv_mask, stream
     "ibwa_lf_walk": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _L, _P],
+    # blocks, primary, L2, sampled, n_samp, ss, ks, off, n_iv, row_begin,
+    # row_end, out, stats, seq_len, n_blk, intv, sa_intv_mask, max_blocks,
+    # stream
+    "ibwa_lf_resolve": [_P, _P, _P, _P, _L, _P, _P, _P, _L, _L, _L, _P, _P,
+                        _L, _L, _I, _L, _I, _P],
     # the argument struct (align/engine.py::_StepArgs), stream
     "ibwa_search_steps": [_P, _P],
     # blocks, primary, L2, l2diff, seqs, seed_seqs, lens, has_seed, w, bid,

@@ -1,4 +1,9 @@
 // Copy of ibwa_tpu/native/src/pe_stage.cpp: the port keeps its own host code.
+// It differs in the walk cache on the device route (after a prefill): every
+// walk of sampe's stages, the selected rows' included, is read from the
+// cache, a miss is a host walk and is counted (ibwa_pe_take_host_walks), the
+// prefilled values are held whatever their number, and
+// ibwa_pe_clear_walks empties the cache between batches.
 //
 // Native sampe per-read stage: SE selection, PE candidate expansion,
 // pairing sweep and multi-hit selection.
@@ -154,11 +159,13 @@ struct PeCtx {
   // repeat-rich genomes; memoize the raw SA-walk values per
   // (db, strand, k, l) for intervals >= MIN_HASH_WIDTH.
   std::unordered_map<uint64_t, std::vector<uint32_t>> sa_cache[16][2];
-  size_t cache_vals = 0;
+  size_t cache_vals = 0;  // values the host walks added (CACHE_MAX_VALS)
   // set once ibwa_pe_prefill_walks has run (device-resolved walks):
   // cached_walk then consults the cache for EVERY width, not just wide
   // intervals — narrow prefilled entries must hit.
   bool prefilled = false;
+  // rows walked on the host after a prefill, since ibwa_pe_take_host_walks
+  int64_t host_walks = 0;
 };
 
 // The reference caches >=1000-wide intervals (filter_alignments.cpp:10)
@@ -188,6 +195,7 @@ static const std::vector<uint32_t>& cached_walk(PeCtx& ctx, int dbidx,
   auto& slot = ctx.sa_cache[dbidx][strand];
   auto it = slot.find(key);
   if (it != slot.end()) return it->second;
+  if (ctx.prefilled && width > 0) ctx.host_walks += width;
   if (width < MIN_HASH_WIDTH) {  // prefill miss on a narrow interval
     tmp.clear();
     tmp.reserve(width);
@@ -210,6 +218,25 @@ static int64_t sa2seq(const PeDb& db, int strand, uint32_t sa,
                       int64_t read_len) {
   if (strand) return db.offset + (int64_t)sa_walk(db.fwd, sa);
   int64_t v = (int64_t)sa_walk(db.rev, sa);
+  return db.offset + (int64_t)db.seq_len - (v + read_len);
+}
+
+// sa2seq of row sa of the interval [k, l]: after a prefill its walk comes
+// from the cache (a miss walks on the host and is counted)
+static int64_t sa2seq_in(PeCtx& ctx, int dbidx, int strand, uint32_t k,
+                         uint32_t l, uint32_t sa, int64_t read_len) {
+  const PeDb& db = ctx.dbs[dbidx];
+  if (!ctx.prefilled) return sa2seq(db, strand, sa, read_len);
+  const auto& slot = ctx.sa_cache[dbidx][strand];
+  auto it = slot.find(((uint64_t)k << 32) | l);
+  int64_t v;
+  if (it != slot.end() && sa >= k && sa - k < it->second.size()) {
+    v = it->second[sa - k];
+  } else {
+    ++ctx.host_walks;
+    v = sa_walk(strand ? db.fwd : db.rev, sa);
+  }
+  if (strand) return db.offset + v;
   return db.offset + (int64_t)db.seq_len - (v + read_len);
 }
 
@@ -539,8 +566,8 @@ static void select_sai_ibwa(PeCtx& ctx, const std::vector<AlnRec>& ag,
       s.i32[G_NGAPE] = p.n_gape;
       s.i32[G_STRAND] = p.a;
       s.i32[G_SCORE] = p.score;
-      s.i64[F_POS] =
-          sa2seq(ctx.dbs[p.dbidx], p.a, (uint32_t)s.i64[F_SA], s.len);
+      s.i64[F_POS] = sa2seq_in(ctx, p.dbidx, p.a, p.k, p.l,
+                               (uint32_t)s.i64[F_SA], s.len);
       RemapIO rio;
       rio.pos = s.i64[F_POS];
       rio.n_gapo = s.i32[G_NGAPO];
@@ -887,11 +914,11 @@ static void select_sai_multi(PeCtx& ctx, const std::vector<AlnRec>& ag,
   };
   std::vector<M> z;
   for (const AlnRec& q : ag) {
-    const PeDb& db = ctx.dbs[q.dbidx];
     int64_t width = (int64_t)q.l - (int64_t)q.k + 1;
     if (width <= rest) {
       for (uint64_t sa = q.k; sa <= (uint64_t)q.l; ++sa) {
-        int64_t pos = sa2seq(db, q.a, (uint32_t)sa, s.len);
+        int64_t pos = sa2seq_in(ctx, q.dbidx, q.a, q.k, q.l, (uint32_t)sa,
+                                s.len);
         z.push_back({pos, q.n_gapo + q.n_gape, q.n_mm, q.a, q.dbidx});
       }
       rest -= width;
@@ -905,7 +932,8 @@ static void select_sai_multi(PeCtx& ctx, const std::vector<AlnRec>& ag,
           pp -= pp * (double)j / (double)i2;
           --i2;
         }
-        int64_t pos = sa2seq(db, q.a, (uint32_t)(q.l - 1), s.len);
+        int64_t pos = sa2seq_in(ctx, q.dbidx, q.a, q.k, q.l,
+                                (uint32_t)(q.l - 1), s.len);
         z.push_back({pos, q.n_gapo + q.n_gape, q.n_mm, q.a, q.dbidx});
         --j;
       }
@@ -2361,25 +2389,60 @@ int64_t ibwa_sai_scan(const uint8_t* blob, int64_t blob_len, int64_t n_reads,
 
 // Prefill the SA-interval walk cache with device-resolved values: for
 // each interval i, vals[off[i]..off[i+1]) are the raw sa_walk values for
-// rows ks[i]..ls[i] of (dbidx, strand) — computed by the TPU LF-walk
-// engine (ibwa_tpu/fm/walk.py), bit-equal to the host walks.  After the
-// first prefill, cached_walk consults the cache for every width.
-void ibwa_pe_prefill_walks(void* pctx, int32_t dbidx, int32_t strand,
-                           int64_t n_intervals, const uint32_t* ks,
-                           const uint32_t* ls, const int64_t* off,
-                           const uint32_t* vals) {
+// rows ks[i]..ls[i] of (dbidx, strand) — computed by the port's K5
+// (ibwa_tpu_torch/fm/walk.py), bit-equal to the host walks.  After the
+// first prefill, cached_walk consults the cache for every width.  Every
+// value is held, whatever the cache holds already (CACHE_MAX_VALS bounds
+// only what host walks add); returns the values it refused: those of an
+// interval whose width disagrees with its (k, l), so 0 on a sound call.
+int64_t ibwa_pe_prefill_walks(void* pctx, int32_t dbidx, int32_t strand,
+                              int64_t n_intervals, const uint32_t* ks,
+                              const uint32_t* ls, const int64_t* off,
+                              const uint32_t* vals) {
   PeCtx& ctx = *(PeCtx*)pctx;
   auto& slot = ctx.sa_cache[dbidx][strand];
+  int64_t refused = 0;
   for (int64_t i = 0; i < n_intervals; ++i) {
     int64_t w = off[i + 1] - off[i];
-    if (w <= 0 || ctx.cache_vals + (size_t)w > CACHE_MAX_VALS) continue;
+    if (w != (int64_t)ls[i] - (int64_t)ks[i] + 1) {
+      refused += w > 0 ? w : 0;
+      continue;
+    }
     uint64_t key = ((uint64_t)ks[i] << 32) | ls[i];
-    auto r = slot.emplace(key, std::vector<uint32_t>());
-    if (!r.second) continue;  // already cached
-    r.first->second.assign(vals + off[i], vals + off[i + 1]);
-    ctx.cache_vals += (size_t)w;
+    slot[key].assign(vals + off[i], vals + off[i + 1]);
   }
   ctx.prefilled = true;
+  return refused;
+}
+
+// Empty the walk cache (the device route, before each batch's prefill).
+// The cache is a pure function of (db, strand, k, l): no output changes.
+void ibwa_pe_clear_walks(void* pctx) {
+  using Slot = std::unordered_map<uint64_t, std::vector<uint32_t>>;
+  PeCtx& ctx = *(PeCtx*)pctx;
+  for (auto& db : ctx.sa_cache)
+    for (Slot& slot : db) Slot().swap(slot);  // frees the buckets too
+  ctx.cache_vals = 0;
+}
+
+// Rows walked on the host after a prefill since the last call; resets.
+int64_t ibwa_pe_take_host_walks(void* pctx) {
+  PeCtx& ctx = *(PeCtx*)pctx;
+  int64_t n = ctx.host_walks;
+  ctx.host_walks = 0;
+  return n;
+}
+
+// What the walk cache holds: out[0] intervals, out[1] values.
+void ibwa_pe_walk_cache_size(void* pctx, int64_t* out) {
+  PeCtx& ctx = *(PeCtx*)pctx;
+  out[0] = out[1] = 0;
+  for (auto& db : ctx.sa_cache)
+    for (auto& slot : db)
+      for (auto& e : slot) {
+        ++out[0];
+        out[1] += (int64_t)e.second.size();
+      }
 }
 
 // Interleave two per-file blob sets into end-read order (r0/file0,

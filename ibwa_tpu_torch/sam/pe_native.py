@@ -16,6 +16,7 @@ caller's explicit choice (`sam.sampe.sai2sam_pe(device=...)`).
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 
@@ -86,6 +87,11 @@ def _lib():
     lib.ibwa_pe_prefill_walks.argtypes = [
         ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
         u32p, u32p, i64p, u32p]
+    lib.ibwa_pe_prefill_walks.restype = ctypes.c_int64
+    lib.ibwa_pe_clear_walks.argtypes = [ctypes.c_void_p]
+    lib.ibwa_pe_take_host_walks.argtypes = [ctypes.c_void_p]
+    lib.ibwa_pe_take_host_walks.restype = ctypes.c_int64
+    lib.ibwa_pe_walk_cache_size.argtypes = [ctypes.c_void_p, i64p]
     _sigs_done = True
     return lib
 
@@ -261,23 +267,35 @@ class PeNative:
         rng.x = int(st[0])
         return int(cnt_chg), mc, mpos, mmeta, cap
 
-    # total SA rows expanded per device prefill call (walk arrays are
-    # ~8 B/row host-side; the native cache caps itself independently)
+    # rows a wave of K5 (one launch, 4 B a row on the card); a batch's
+    # rows past it are resolved in further waves, none on the host
     PREFILL_MAX_ROWS = 16 << 20
 
-    def device_prefill_walks(self, walkers, recs_by_db
-                             ) -> tuple[int, int, int, int]:
+    def device_prefill_walks(self, walkers, recs_by_db) -> dict:
         """Resolve every SA interval of a batch's .sai records on the
-        device and prefill the native stage's walk cache, so
-        compute_coords (pe_stage.cpp) never LF-walks on the host core.
+        device and prefill the native stage's walk cache with them, so
+        that the stages (pe_stage.cpp) never LF-walk on the host core.
+        The cache of the batch before is emptied first.
 
         walkers: per-db fm.walk.DeviceWalker (None entries skip that db),
         in DbSet's order; recs_by_db: per-db list of u32[n,4] .sai record
         arrays (meta,k,l,score) — both ends' scans for the batch.
 
-        Returns (rows resolved on the device, dispatches, rows and
-        intervals left to the host walks past PREFILL_MAX_ROWS)."""
-        n_rows_dev = n_disp = left_rows = left_ivs = 0
+        Returns {rows, waves, launches, refused, host_walks, split}: rows
+        resolved on the device, waves of at most PREFILL_MAX_ROWS rows and
+        kernel launches (0 on the CPU) they took, values the cache
+        refused, rows walked on the host since the last prefill (the batch
+        before), and the wall seconds of the prefill's parts: the unique
+        intervals (numpy), the walker (upload, K5, download), the cache
+        (emptied, then filled)."""
+        lib, ctx = self._lib, self._ctx
+        split = dict(intervals=0.0, walker=0.0, cache=0.0)
+        t0 = time.perf_counter()
+        tot = dict(rows=0, waves=0, launches=0, refused=0,
+                   host_walks=self.take_host_walks(), split=split)
+        lib.ibwa_pe_clear_walks(ctx)
+        t1 = time.perf_counter()
+        split["cache"] += t1 - t0
         for dbidx, recs_list in enumerate(recs_by_db):
             w = walkers[dbidx] if dbidx < len(walkers) else None
             recs_list = [r for r in recs_list if len(r)]
@@ -285,66 +303,57 @@ class PeNative:
                 continue
             recs = (np.concatenate(recs_list) if len(recs_list) > 1
                     else recs_list[0])
-            a = ((recs[:, 0] >> 24) & 1).astype(np.uint8)
+            recs = recs[recs[:, 2] >= recs[:, 1]]   # empty: nothing to walk
+            a = (recs[:, 0] >> 24) & 1
             groups = []
-            rows_parts, strd_parts = [], []
-            total = 0
             for av in (0, 1):
                 sel = recs[a == av]
                 if not len(sel):
                     continue
-                key = (sel[:, 1].astype(np.uint64) << np.uint64(32)) \
-                    | sel[:, 2].astype(np.uint64)
-                key = np.unique(key)
-                ks = (key >> np.uint64(32)).astype(np.uint32)
-                ls = (key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-                widths = ls.astype(np.int64) - ks + 1
-                # drop widest intervals past the row budget (they fall
-                # back to host walks + the native wide-interval cache;
-                # counted in what this returns)
-                csum = np.cumsum(widths[np.argsort(widths)])
-                budget = self.PREFILL_MAX_ROWS - total
-                n_keep = int(np.searchsorted(csum, budget, side="right"))
-                if n_keep < len(widths):
-                    order = np.argsort(widths)[:n_keep]
-                    left_rows += int(csum[-1]) - (int(csum[n_keep - 1])
-                                                  if n_keep else 0)
-                    left_ivs += len(widths) - n_keep
-                    ks, ls = ks[order], ls[order]
-                    widths = widths[order]
-                if not len(ks):
-                    continue
-                off = np.zeros(len(ks) + 1, dtype=np.int64)
-                np.cumsum(widths, out=off[1:])
-                n_rows = int(off[-1])
-                total += n_rows
-                pos = (np.arange(n_rows, dtype=np.int64)
-                       - np.repeat(off[:-1], widths))
-                rows = (np.repeat(ks.astype(np.int64), widths)
-                        + pos).astype(np.uint32)
-                rows_parts.append(rows)
-                # device strand: a=1 walks the forward index (walker 0)
-                strd_parts.append(
-                    np.full(n_rows, 1 - av, dtype=np.uint32))
-                groups.append((av, ks, ls, off, n_rows))
+                key = np.unique((sel[:, 1].astype(np.uint64) << np.uint64(32))
+                                | sel[:, 2].astype(np.uint64))
+                groups.append((av, (key >> np.uint64(32)).astype(np.uint32),
+                               (key & np.uint64(0xFFFFFFFF)).astype(
+                                   np.uint32)))
             if not groups:
                 continue
-            all_rows = np.concatenate(rows_parts)
-            all_strd = np.concatenate(strd_parts)
-            vals = w.resolve(all_strd, all_rows)
-            n_rows_dev += len(all_rows)
-            n_disp += -(-len(all_rows) // w.lanes)
-            base = 0
-            for av, ks, ls, off, n_rows in groups:
-                self._lib.ibwa_pe_prefill_walks(
-                    self._ctx, dbidx, av, len(ks),
-                    _ptr(np.ascontiguousarray(ks), ctypes.c_uint32),
-                    _ptr(np.ascontiguousarray(ls), ctypes.c_uint32),
-                    _ptr(off, ctypes.c_int64),
-                    _ptr(np.ascontiguousarray(vals[base:base + n_rows]),
-                         ctypes.c_uint32))
-                base += n_rows
-        return n_rows_dev, n_disp, left_rows, left_ivs
+            # device strand: a=1 walks the forward index (walker 0)
+            strand = np.concatenate([np.full(len(ks), 1 - av, np.uint32)
+                                     for av, ks, _ in groups])
+            ks_all = np.concatenate([g[1] for g in groups])
+            ls_all = np.concatenate([g[2] for g in groups])
+            t2 = time.perf_counter()
+            off, vals = w.resolve_intervals(strand, ks_all, ls_all,
+                                            wave_rows=self.PREFILL_MAX_ROWS)
+            t3 = time.perf_counter()
+            for name in ("rows", "waves", "launches"):
+                tot[name] += w.last[name]
+            i = 0
+            for av, ks, ls in groups:
+                j = i + len(ks)
+                tot["refused"] += lib.ibwa_pe_prefill_walks(
+                    ctx, dbidx, av, len(ks), _ptr(ks, ctypes.c_uint32),
+                    _ptr(ls, ctypes.c_uint32),
+                    _ptr(off[i:j + 1] - off[i], ctypes.c_int64),
+                    _ptr(vals[off[i]:], ctypes.c_uint32))
+                i = j
+            t4 = time.perf_counter()
+            split["intervals"] += t2 - t1
+            split["walker"] += t3 - t2
+            split["cache"] += t4 - t3
+            t1 = t4
+        return tot
+
+    def take_host_walks(self) -> int:
+        """Rows walked on the host after a prefill since the last call."""
+        return int(self._lib.ibwa_pe_take_host_walks(self._ctx))
+
+    def walk_cache_size(self) -> tuple[int, int]:
+        """(intervals, values) the walk cache holds."""
+        out = np.zeros(2, dtype=np.int64)
+        self._lib.ibwa_pe_walk_cache_size(self._ctx,
+                                          _ptr(out, ctypes.c_int64))
+        return int(out[0]), int(out[1])
 
     def enable_emit(self) -> None:
         """Register the emit-time per-db data (pac codes, .amb holes,

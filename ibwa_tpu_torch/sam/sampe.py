@@ -1030,12 +1030,15 @@ def sai2sam_pe(prefixes: list[str], sai_pairs: list[tuple[str, str]],
                     recs_by_db[i].append(recs)
             if walkers is not None:
                 t0 = time.perf_counter()
-                rows, disp, left_rows, left_ivs = \
-                    pe_nat.device_prefill_walks(walkers, recs_by_db)
-                print(f"[sai2sam_pe] prefill {rows} rows in {disp} "
-                      f"dispatches, {left_rows} rows of {left_ivs} intervals "
-                      f"left to the host walks, "
-                      f"{time.perf_counter() - t0:.6f} s", file=sys.stderr)
+                pf = pe_nat.device_prefill_walks(walkers, recs_by_db)
+                print(f"[sai2sam_pe] prefill {pf['rows']} rows in "
+                      f"{pf['waves']} waves, {pf['launches']} launches; "
+                      f"{pf['refused']} values refused by the cache, "
+                      f"{pf['host_walks']} host walks since the last batch; "
+                      f"{time.perf_counter() - t0:.6f} s (intervals "
+                      f"{pf['split']['intervals']:.6f} s, walker "
+                      f"{pf['split']['walker']:.6f} s, cache "
+                      f"{pf['split']['cache']:.6f} s)", file=sys.stderr)
             lens = np.empty(2 * n_batch, dtype=np.int32)
             fulls = np.empty(2 * n_batch, dtype=np.int32)
             for j in range(2):
@@ -1119,6 +1122,9 @@ def sai2sam_pe(prefixes: list[str], sai_pairs: list[tuple[str, str]],
         print(f"[sai2sam_pe] {tot} sequences have been processed.",
               file=sys.stderr)
         last_ii = ii
+    if walkers is not None:
+        print(f"[sai2sam_pe] {pe_nat.take_host_walks()} host walks after "
+              f"the last prefill", file=sys.stderr)
     for which in range(2):
         for fp in fps[which]:
             fp.close()

@@ -55,6 +55,7 @@ struct uint4 {
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 
 namespace cuda_standin {
 
@@ -200,6 +201,29 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 
+// A card of kSms SMs that holds kBlocksPerSm blocks of any kernel each: a
+// persistent grid here is 8 blocks, run one after another.
+namespace cuda_standin {
+constexpr int kSms = 2, kBlocksPerSm = 4;
+}
+
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = cuda_standin::kSms;
+  return cudaSuccess;
+}
+
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F,
+                                                                 int, size_t) {
+  *n = cuda_standin::kBlocksPerSm;
+  return cudaSuccess;
+}
+
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) { cuda_standin::exchange(0); }
 
 inline void __syncthreads() {
@@ -251,6 +275,13 @@ inline int __reduce_min_sync(unsigned, int v) {
     if (other < least) least = other;
   }
   return least;
+}
+
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  const uint64_t* s = cuda_standin::exchange(v);
+  unsigned all = 0;
+  for (int i = 0; i < 32; ++i) all |= (unsigned)s[i];
+  return all;
 }
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }

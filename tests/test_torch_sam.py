@@ -196,36 +196,82 @@ def test_sampe_device_walks_match_host_walks(pe_case, case):
     assert _prefill_rows(err) > 0
 
 
-def _prefill_counts(err: str) -> tuple[int, int, int]:
-    """(rows prefilled, rows left to the host walks, intervals left), summed
-    over the batches' prefill lines."""
-    found = re.findall(r"\[sai2sam_pe\] prefill (\d+) rows in \d+ "
-                       r"dispatches, (\d+) rows of (\d+) intervals left to "
-                       r"the host walks", err)
-    assert found, err[-2000:]
-    return tuple(sum(int(f[i]) for f in found) for i in range(3))
+PREFILL_LINE = re.compile(
+    r"\[sai2sam_pe\] prefill (\d+) rows in (\d+) waves, (\d+) launches; "
+    r"(\d+) values refused by the cache, (\d+) host walks since the last "
+    r"batch")
+LAST_LINE = re.compile(r"\[sai2sam_pe\] (\d+) host walks after the last "
+                       r"prefill")
+
+
+def _prefill_lines(err: str) -> list[tuple[int, ...]]:
+    """Per batch: (rows, waves, launches, values refused, host walks since
+    the batch before); and the host walks after the last prefill."""
+    found = [tuple(int(x) for x in m) for m in PREFILL_LINE.findall(err)]
+    last = [int(x) for x in LAST_LINE.findall(err)]
+    assert found and len(last) == 1, err[-2000:]
+    return found, last[0]
 
 
 def test_sampe_prefill_cap_reports_rows_left_to_host(pe_case, monkeypatch):
-    """Past PeNative.PREFILL_MAX_ROWS the widest intervals are left to the
-    host walks: the prefill line counts them, every row is either
-    prefilled or left, and the SAM is still the host walks'."""
+    """PeNative.PREFILL_MAX_ROWS is the size of a wave: at a third of the
+    batch's rows every row is still resolved by the walker, in three or
+    more waves, none is left to the host walks (the prefill line reports
+    0, and so does the line after the last batch), the cache refuses
+    nothing, and the SAM is still the host walks'."""
     from ibwa_tpu_torch.sam.pe_native import PeNative
     tmp, fa, fqs = pe_case
     sais = _pe_sais(tmp, fa, fqs, GapOpt(), "plain")
     run = lambda: _run(t_sai2sam_pe, [str(fa)], [tuple(sais)], *fqs,
                        TPeOpt(remapping=1), device=CPU)
     full, err = run()
-    rows, left, left_ivs = _prefill_counts(err)
-    assert rows > 0 and left == left_ivs == 0
-    monkeypatch.setattr(PeNative, "PREFILL_MAX_ROWS", rows // 2)
+    ((rows, waves, launches, refused, host),), last = _prefill_lines(err)
+    assert rows > 0 and waves == 1 and launches == 0     # CPU: no kernel
+    assert refused == host == last == 0
+    monkeypatch.setattr(PeNative, "PREFILL_MAX_ROWS", rows // 3)
     capped, err = run()
-    c_rows, c_left, c_left_ivs = _prefill_counts(err)
-    assert 0 < c_rows <= rows // 2 and c_left > 0 and c_left_ivs > 0
-    assert c_rows + c_left == rows
-    host, _ = _run(t_sai2sam_pe, [str(fa)], [tuple(sais)], *fqs,
-                   TPeOpt(remapping=1))
-    assert capped == full == host
+    ((c_rows, c_waves, _, refused, host),), last = _prefill_lines(err)
+    assert c_rows == rows and c_waves >= 3
+    assert refused == host == last == 0
+    native, _ = _run(t_sai2sam_pe, [str(fa)], [tuple(sais)], *fqs,
+                     TPeOpt(remapping=1))
+    assert capped == full == native
+
+
+def test_sampe_batches_prefill_their_own_walks(pe_case, monkeypatch):
+    """sampe.BATCH lowered so that the 250 pairs make 3 batches: every
+    batch's prefill reports 0 host walks and 0 refused values, the cache
+    after each prefill holds that batch's intervals and nothing else, and
+    the SAM is byte-equal to --engine native at the same BATCH."""
+    import numpy as np
+    from ibwa_tpu_torch.sam import sampe as tsampe
+    from ibwa_tpu_torch.sam.pe_native import PeNative
+    tmp, fa, fqs = pe_case
+    sais = _pe_sais(tmp, fa, fqs, GapOpt(), "plain")
+    monkeypatch.setattr(tsampe, "BATCH", 100)
+    held, prefill = [], PeNative.device_prefill_walks
+
+    def recorded(self, walkers, recs_by_db):
+        out = prefill(self, walkers, recs_by_db)
+        recs = np.concatenate(recs_by_db[0])
+        recs = recs[recs[:, 2] >= recs[:, 1]]
+        ivs = np.unique(recs[:, :3] & [1 << 24, 0xFFFFFFFF, 0xFFFFFFFF],
+                        axis=0)
+        held.append((self.walk_cache_size(),
+                     (len(ivs), int((ivs[:, 2] - ivs[:, 1] + 1).sum()))))
+        return out
+
+    monkeypatch.setattr(PeNative, "device_prefill_walks", recorded)
+    dev, err = _run(t_sai2sam_pe, [str(fa)], [tuple(sais)], *fqs,
+                    TPeOpt(remapping=1), device=CPU)
+    lines, last = _prefill_lines(err)
+    assert len(lines) == len(held) == 3 and last == 0
+    assert all(ln[0] > 0 and ln[3] == ln[4] == 0 for ln in lines)
+    for got, want in held:
+        assert got == want and want[0] > 0
+    native, _ = _run(t_sai2sam_pe, [str(fa)], [tuple(sais)], *fqs,
+                     TPeOpt(remapping=1))
+    assert dev == native and _mapped(dev) > 400
 
 
 def test_sampe_pure_python_route(pe_case, monkeypatch):
