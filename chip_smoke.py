@@ -72,6 +72,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         lowered), SAM byte-equal to --engine native at that size, 0 host
         walks and 0 refused values in every batch; and `samse` on end 1,
         one line per read
+     e. `bwasw`: K9 extend_dp against its plain version, bitwise (its
+        counters too), on tests/test_dp_device.py's job shapes and on jobs
+        beyond the JAX package's caps (targets to 8,000, queries to
+        3,000), a sample of each against the host kernel; 4,096 long reads
+        of the smoke genome (400-999 bp, 2% substitutions, half
+        reverse-complemented; one 10 Mbp chunk, four staged segments, a
+        left and a right batch each), `bwasw --engine torch --device cuda`
+        against `--engine native`, three rounds in turns, SAM byte-equal
+        in each, rates as median and range, the stage split of each run;
+        the torch route launches extend_dp and nothing else, once a batch,
+        8 batches, and every job it leaves to the host is a counted gate,
+        under-minimum or empty one; the native route launches nothing; the
+        first torch run's batches recorded: K9 against its plain version
+        on the first left and right batch, K9 timed on every batch beside
+        its bounds (bytes, operations, and the longest job's rows x one
+        row's chain, measured on one job), and on the first left batch
+        in the driver's job order against longest query first, in turns;
+        the staged native driver against the sequential one, SAM
+        byte-equal, the core's section timers on in both
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
@@ -120,6 +139,9 @@ B_LANES = 1024
 WALK_PAIRS = 2_097_152          # one wave of the walker
 OLD_DISPATCH = 131_072          # rows a dispatch of K5's first version
 MANY_BATCHES = 4                # sampe batches of the RATE_PAIRS run
+N_LONG = 4096                   # bwasw's long reads: one 10 Mbp chunk, four
+                                # staged segments of 1,024 reads
+EXT_OPS_PER_CELL = 40           # K9's integer operations a cell (estimate)
 PROBE_STEPS, PROBE_DELTA = 256, 2048
 PROBE_LANES = [32, 256, 1024]   # 32: one warp, the fetch latency itself
 PROBE_TABLES = [("a", 500_000, 128),      # the TPU probe's shape, 256 MB
@@ -1618,6 +1640,383 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
             "rows_fetched": fp["rows"], "sampled_words": fp["slots"]}
 
 
+def ext_jobs(rng, n: int, tmax: int, qmax: int, band: int) -> dict:
+    """tests/test_dp_device.py's random extension jobs (70% of the queries
+    a mutated copy of the target's start, some with an indel), as the
+    native driver hands a batch over."""
+    import numpy as np
+    targets, queries = [], []
+    for _ in range(n):
+        lt = int(rng.integers(1, tmax))
+        lq = int(rng.integers(1, qmax))
+        t = rng.integers(0, 4, lt).astype(np.uint8)
+        if rng.random() < 0.7 and lt > 4:
+            q = t[:min(lq, lt)].copy()
+            for _ in range(rng.integers(0, max(len(q) // 8, 1) + 1)):
+                q[rng.integers(0, len(q))] = rng.integers(0, 4)
+            if rng.random() < 0.4 and len(q) > 10:
+                q = np.delete(q, int(rng.integers(2, len(q) - 2)))
+        else:
+            q = rng.integers(0, 4, lq).astype(np.uint8)
+        targets.append(t)
+        queries.append(q)
+    bands = np.full(n, band, dtype=np.int32)
+    bands[::5] = rng.integers(1, band + 1, len(bands[::5]))
+    return ext_batch(targets, queries, rng.integers(1, 100, n), bands)
+
+
+def ext_batch(targets, queries, g0, bands, q: int = 5, r: int = 2) -> dict:
+    """A batch as dp.extend_jobs takes it (bsw2.cpp's ExtBatch)."""
+    import numpy as np
+    offs = []
+    for seqs in (targets, queries):
+        off = np.zeros(len(seqs) + 1, dtype=np.int64)
+        off[1:] = np.cumsum([len(x) for x in seqs])
+        offs.append(off)
+    m = np.full(25, -3, dtype=np.int32)
+    m[[0, 6, 12, 18]] = 1
+    return {"tgt_blob": np.concatenate(targets).astype(np.uint8),
+            "tgt_off": offs[0],
+            "qry_blob": np.concatenate(queries).astype(np.uint8),
+            "qry_off": offs[1], "g0": np.asarray(g0, dtype=np.int32),
+            "band": np.asarray(bands, dtype=np.int32), "matrix": m,
+            "gap_open": q, "gap_ext": r}
+
+
+def long_ext_jobs(rng, lens) -> dict:
+    """Jobs beyond the JAX package's compile caps (targets up to ~8,000,
+    queries up to ~3,000): related, 4% substituted."""
+    import numpy as np
+    targets, queries = [], []
+    for lt, lq in lens:
+        t = rng.integers(0, 4, lt).astype(np.uint8)
+        qq = t[:lq].copy()
+        for _ in range(lq // 25):
+            qq[rng.integers(0, lq)] = rng.integers(0, 4)
+        targets.append(t)
+        queries.append(qq)
+    return ext_batch(targets, queries, rng.integers(1, 100, len(lens)),
+                     np.full(len(lens), 50))
+
+
+def ext_args(b: dict, dev):
+    """(extend_scan's tensors on dev, the matrix), for the jobs the
+    device runs."""
+    import torch
+    from ibwa_tpu_torch.ops import dp
+    ids, _ = dp.device_jobs(b["tgt_off"], b["qry_off"], b["g0"], b["matrix"])
+    up = lambda a: torch.from_numpy(a).to(dev)
+    return (up(b["tgt_blob"]), up(b["tgt_off"]), up(b["qry_blob"]),
+            up(b["qry_off"]), up(b["g0"]), up(b["band"]), up(ids))
+
+
+def check_extend_batch(label: str, b: dict, dev) -> dict:
+    """K9 against its plain version on one batch, bitwise, its counters
+    against the plain version's; a sample of its rows against the host
+    kernel (`native.extend_aln`)."""
+    import numpy as np
+    import torch
+    from ibwa_tpu_torch import native
+    from ibwa_tpu_torch.ops import dp
+    args = ext_args(b, dev)
+    mat, q, r = b["matrix"], b["gap_open"], b["gap_ext"]
+    want, wst = dp.extend_scan_plain(
+        *args, torch.from_numpy(mat.astype(np.int64)), q, r)
+    got, st = dp.extend_scan(*args, mat, q, r)
+    torch.cuda.synchronize()
+    err = max_abs_err([got], [want])
+    st = st.tolist()
+    if err or st[1:] != wst[1:].tolist():
+        raise AssertionError(f"K9 {label}: kernel != plain (max abs err "
+                             f"{err}; counters {st} against {wst.tolist()})")
+    ids = args[6].cpu().numpy()
+    got = got.cpu().numpy()
+    sample = ids[np.linspace(0, len(ids) - 1, min(64, len(ids))).astype(int)]
+    to, qo = b["tgt_off"], b["qry_off"]
+    for i in sample:
+        host = native.extend_aln(
+            b["tgt_blob"][to[i]:to[i + 1]], b["qry_blob"][qo[i]:qo[i + 1]],
+            q, r, int(b["band"][i]), mat.reshape(5, 5), int(b["g0"][i]))
+        if tuple(got[i]) != host:
+            raise AssertionError(f"K9 {label} job {i}: {tuple(got[i])}, the "
+                                 f"host kernel {host}")
+    log(f"K9 extend_dp {label}: {len(ids)} jobs of {len(b['g0'])} bitwise "
+        f"equal to the plain version ({st[1]} rows, {st[2]} cells, longest "
+        f"job {st[3]} rows, queue {st[0]}), {len(sample)} of them equal to "
+        f"the host kernel")
+    return {"jobs": len(ids), "rows": st[1], "cells": st[2],
+            "longest": st[3]}
+
+
+def ext_kernel_ms(b: dict, args, reps: int) -> float:
+    """K9's device ms on one batch (`args`: its tensors, `ext_args`): the
+    profiler's time of its kernel, or the CUDA-event span of the calls
+    where the profiler saw nothing."""
+    from ibwa_tpu_torch.ops import dp
+    fn = lambda: dp.extend_scan(*args, b["matrix"], b["gap_open"],
+                                b["gap_ext"])
+    fn()
+
+    def body():
+        for _ in range(reps):
+            fn()
+
+    us = {k: v for k, v in traced(body, reps).items() if "extend_dp" in k}
+    if not us:
+        ms = event_ms(fn, reps)
+        log(f"K9 {ms:.5f} ms is the CUDA-event span of {reps} calls")
+        return ms
+    return sum(t for t, _ in us.values()) / 1e3
+
+
+def ext_bound(b: dict, counters: dict, row_us: float) -> dict:
+    """K9's least time on a batch: bytes (the blobs, offsets, G0, bands
+    and job list in, each job's row of cells written once, 12 B a job
+    out) over the memory rate, or the counted cells' operations over the
+    integer rate; and the latency bound, the longest job's rows times one
+    row's dependent chain (`row_us`, measured)."""
+    n = len(b["g0"])
+    moved = (b["tgt_blob"].size + b["qry_blob"].size + 16 * (n + 1)
+             + 8 * n + 4 * counters["jobs"] + 4 * (int(b["tgt_off"][-1])
+                                                   + 2 * n) + 12 * n)
+    bd = bound(moved, counters["cells"] * EXT_OPS_PER_CELL)
+    bd["latency_bound_ms"] = counters["longest"] * row_us / 1e3
+    bd["bytes"] = moved
+    return bd
+
+
+def ext_row_us(dev) -> float:
+    """One row's dependent chain on the card: the marginal us a row of
+    one job (one warp, band 50, a related query) between 1,000 and 2,000
+    rows, CUDA events."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 4)
+    t = rng.integers(0, 4, 2200).astype(np.uint8)
+    ms, rows = [], []
+    for lq in (1000, 2000):
+        qq = t[:lq].copy()
+        for _ in range(lq // 50):
+            qq[rng.integers(0, lq)] = rng.integers(0, 4)
+        b = ext_batch([t[:lq + 100]], [qq], [60], [50])
+        from ibwa_tpu_torch.ops import dp
+        args = ext_args(b, dev)
+        fn = lambda: dp.extend_scan(*args, b["matrix"], 5, 2)
+        fn()
+        ms.append(event_ms(fn, 20))
+        rows.append(fn()[1][1].item())
+    return (ms[1] - ms[0]) / (rows[1] - rows[0]) * 1e3
+
+
+BWASW_EXT = re.compile(
+    r"\[bsw2_aln\] extensions: (\d+) jobs in (\d+) batches on (\S+) \((\d+) "
+    r"launches\), (\d+) on the host \(gate (\d+), under the minimum (\d+), "
+    r"empty (\d+)\); (\d+) jobs in all")
+BWASW_NATIVE = re.compile(r"\[bsw2_aln\] extensions: (\d+) jobs, all on the "
+                          r"host \(engine native; empty (\d+)\)")
+BWASW_STAGES = re.compile(
+    r"\[bsw2_aln\] stages: core ([\d.]+) s, extensions ([\d.]+) s \(device "
+    r"route ([\d.]+) s, host loop ([\d.]+) s\), cigar ([\d.]+) s, all "
+    r"([\d.]+) s")
+
+
+def bwasw_run(fa, fq, engine: str, out: pathlib.Path, dev) -> dict:
+    """One `bwasw --engine <engine>` (`--device dev` on torch), launch
+    counts set to 0 just before and read just after: wall s, SAM bytes,
+    launches, the extension line's numbers and the stage split.  The
+    torch route must launch extend_dp and nothing else, once a batch its
+    glue took, and every job it did not run must be a counted gate,
+    under-minimum or empty one; the native route launches nothing."""
+    from ibwa_tpu_torch import kernels
+    args = ["--engine", engine] + (["--device", str(dev)]
+                                   if engine == "torch" else []) + [
+        str(fa), str(fq)]
+    kernels.reset_launches()
+    wall, err = run_cli("bwasw", args, out)
+    got = dict(kernels.launches)
+    stages = dict(zip(("core", "ext", "device_route", "host_loop", "cigar",
+                       "all"), map(float, BWASW_STAGES.search(err).groups())))
+    res = {"wall": wall, "sam": out.read_bytes(), "launches": got,
+           "stages": stages}
+    if engine == "native":
+        m = BWASW_NATIVE.search(err)
+        if got or not m:
+            raise AssertionError(f"bwasw --engine native launched {got}:\n"
+                                 f"{err[-2000:]}")
+        res.update(total=int(m.group(1)), empty=int(m.group(2)))
+        return res
+    m = BWASW_EXT.search(err)
+    if not m:
+        raise AssertionError(f"bwasw printed no extension line:\n{err}")
+    jobs, batches, _, launches, host, gate, small, empty, total = (
+        int(x) if x.isdigit() else x for x in m.groups())
+    want = {"extend_dp": batches} if dev.type == "cuda" else {}
+    if (got != want or launches != sum(want.values()) or jobs + host != total
+            or host != gate + small + empty):
+        raise AssertionError(f"bwasw on the card: launches {got}, line "
+                             f"{m.group(0)!r}")
+    res.update(jobs=jobs, batches=batches, gate=gate, small=small,
+               empty=empty, total=total)
+    return res
+
+
+def run_bwasw_phase(fa, dev) -> dict:
+    """K9 against its plain version on tests/test_dp_device.py's job
+    shapes and on jobs beyond the JAX caps; `bwasw --engine torch --device
+    cuda` against `--engine native` on N_LONG long reads, ROUNDS rounds in
+    turns, SAM byte-equal in each (the first torch run's batches recorded:
+    K9 against its plain version on the first left and right batch, and
+    timed on every batch); the staged driver against the sequential one
+    with no device route; the stage split of each run and the core's
+    sections.  Returns K9's row of the kernel table."""
+    import numpy as np
+    import torch
+    from ibwa_tpu_torch import bwasw_ab
+    from ibwa_tpu_torch.ops import dp
+    checks = {}
+    for seed, tmax, qmax, band in ((1, 60, 40, 8), (2, 300, 200, 50),
+                                   (3, 1500, 1100, 50), (4, 25, 90, 33)):
+        checks[f"test shapes seed {seed}"] = check_extend_batch(
+            f"test shapes seed {seed} (band {band})",
+            ext_jobs(np.random.default_rng(seed), 40, tmax, qmax, band), dev)
+    checks["beyond the JAX caps"] = check_extend_batch(
+        "beyond the JAX caps", long_ext_jobs(
+            np.random.default_rng(SEED + 5),
+            [(8000, 3000), (5000, 2500), (7000, 2200), (4500, 900)] * 8), dev)
+    fq = bwasw_ab.make_long_reads(fa, N_LONG,
+                                  WORK / f"long_{SEED + 3}_{N_LONG}.fq")
+    n_bases = sum(len(ln) - 1 for i, ln in enumerate(open(fq, "rb"))
+                  if i % 4 == 1)
+    log(f"bwasw: {N_LONG} long reads, {n_bases} bases")
+    routes = ("torch", "native")
+    sam = {e: WORK / f"long_{e}.sam" for e in routes}
+    recorded = []
+    extend_jobs = dp.extend_jobs
+
+    def record(*a, **k):
+        recorded.append([x.copy() if isinstance(x, np.ndarray) else x
+                         for x in a])
+        return extend_jobs(*a, **k)
+
+    runs = {e: [] for e in routes}
+    for r in range(ROUNDS):
+        for e in routes if r % 2 == 0 else routes[::-1]:
+            if e == "torch" and r == 0:
+                dp.extend_jobs = record
+            try:
+                runs[e].append(bwasw_run(fa, fq, e, sam[e], dev))
+            finally:
+                dp.extend_jobs = extend_jobs
+        if runs["torch"][-1]["sam"] != runs["native"][-1]["sam"]:
+            raise AssertionError(f"round {r}: bwasw SAM with K9 differs from "
+                                 f"the host extensions'")
+        if runs["native"][-1]["sam"] != runs["native"][0]["sam"]:
+            raise AssertionError(f"round {r}: bwasw SAM differs from round 0")
+    t0, n0 = runs["torch"][0], runs["native"][0]
+    records = sum(1 for ln in n0["sam"].splitlines() if ln[:1] != b"@")
+    segments = -(-N_LONG // 1024)
+    if (t0["batches"] != 2 * segments or t0["total"] != n0["total"]
+            or records < N_LONG):
+        raise AssertionError(f"bwasw: {t0['batches']} batches on the card "
+                             f"for {segments} segments, {t0['total']} jobs "
+                             f"against the host's {n0['total']}, {records} "
+                             f"records")
+    log(f"bwasw --engine torch --device cuda against --engine native on "
+        f"{N_LONG} reads, {ROUNDS} rounds in turns: SAM byte-equal in every "
+        f"round ({len(n0['sam'])} bytes, {records} records); extensions "
+        f"{t0['jobs']} jobs in {t0['batches']} batches on the card "
+        f"({t0['launches']} launched, nothing else), {t0['gate'] + t0['small'] + t0['empty']} on the host (gate "
+        f"{t0['gate']}, under the minimum {t0['small']}, empty "
+        f"{t0['empty']}) of {t0['total']}; the native run launched nothing")
+    for e in routes:
+        log(f"bwasw --engine {e}: reads/s of the command's wall, untraced, "
+            f"{spread([N_LONG / x['wall'] for x in runs[e]])}; stages a run "
+            f"(core / extensions (device route / host loop) / cigar / all, "
+            f"s): " + "; ".join(
+                f"{s['core']:.4f} / {s['ext']:.4f} ({s['device_route']:.4f} /"
+                f" {s['host_loop']:.4f}) / {s['cigar']:.4f} / {s['all']:.4f}"
+                for s in (x["stages"] for x in runs[e])))
+
+    # staged against sequential, no device route installed, the core's
+    # section timers on in both
+    ab = bwasw_ab.staged_ab(str(fa), str(fq), 1, profile=True)
+    if ab["sam"] != n0["sam"]:
+        raise AssertionError("bwasw: the staged driver's SAM differs from "
+                             "the CLI run's")
+    fmt = lambda x: " / ".join(f"{x[k]:.4f}" for k in bwasw_ab.STAGES
+                               + bwasw_ab.CORE)
+    walls = [ab[k][0]["wall_s"] for k in ("sequential", "staged")]
+    log(f"bwasw --engine native sequential against staged, in turns, no "
+        f"device route, the core's section timers on in both: SAM "
+        f"byte-equal; wall {walls[0]:.3f} s against {walls[1]:.3f} s; "
+        f"stages (core / extensions / device route / host loop / cigar / "
+        f"all; the core's connectivity prepass / cell fill / hit save, s) "
+        f"{fmt(ab['sequential'][0])} against {fmt(ab['staged'][0])}")
+
+    # the run's own batches: the first left and right against the plain
+    # version, every one timed
+    batches = [dict(zip(("tgt_blob", "tgt_off", "qry_blob", "qry_off", "g0",
+                         "band", "matrix", "gap_open", "gap_ext"), a[:9]))
+               for a in recorded]
+    if len(batches) != t0["batches"]:
+        raise AssertionError(f"recorded {len(batches)} batches of "
+                             f"{t0['batches']}")
+    for k, label in ((0, "the run's first left batch"),
+                     (1, "the run's first right batch")):
+        checks[label] = check_extend_batch(label, batches[k], dev)
+    row_us = ext_row_us(dev)
+    per_batch, share = [], 0.0
+    for k, b in enumerate(batches):
+        args = ext_args(b, dev)
+        st = dp.extend_scan(*args, b["matrix"], b["gap_open"],
+                            b["gap_ext"])[1].tolist()
+        counters = {"jobs": len(args[6]), "rows": st[1], "cells": st[2],
+                    "longest": st[3]}
+        ms = ext_kernel_ms(b, args, 10)
+        bd = ext_bound(b, counters, row_us)
+        per_batch.append({"ms": ms, **counters, **bd})
+        share += ms / 1e3
+        log(f"K9 on the run's batch {k} ({'left' if k % 2 == 0 else 'right'})"
+            f": {counters['jobs']} jobs, {counters['rows']} rows, "
+            f"{counters['cells']} cells, longest {counters['longest']} rows; "
+            f"{ms:.5f} ms; bounds {bd['bound_ms']:.5f} ms by "
+            f"{bd['bound_by']} ({bd['bytes']} B), latency "
+            f"{bd['latency_bound_ms']:.5f} ({counters['longest']} rows x "
+            f"{row_us:.4f} us)")
+    # the queue's order on the first left batch: the driver's against
+    # longest query first (ext_args' order), two readings each in turns
+    b0 = batches[0]
+    args = ext_args(b0, dev)
+    orders = {"longest first": args,
+              "the driver's": args[:6] + (torch.sort(args[6]).values,)}
+    order_ms = {name: [] for name in orders}
+    for r in range(2):
+        for name in orders if r == 0 else list(orders)[::-1]:
+            order_ms[name].append(ext_kernel_ms(b0, orders[name], 10))
+    log(f"K9 on batch 0, the jobs in the driver's order against longest "
+        f"query first, in turns: " + "; ".join(
+            f"{name} {' / '.join(f'{x:.5f}' for x in v)} ms"
+            for name, v in order_ms.items()))
+    walls = sorted(x["wall"] for x in runs["torch"])
+    mat64 = torch.from_numpy(b0["matrix"].astype(np.int64))
+    plain_ms = event_ms(lambda: dp.extend_scan_plain(
+        *args, mat64, b0["gap_open"], b0["gap_ext"]), 1)
+    log(f"K9 on all {len(batches)} batches {share * 1e3:.5f} ms = "
+        f"{share / statistics.median(walls):.6f} of the median torch run's "
+        f"wall ({statistics.median(walls):.3f} s); one row's chain "
+        f"{row_us:.4f} us; the plain version on batch 0 {plain_ms:.3f} ms")
+    first = per_batch[0]
+    return {"launches": t0["launches"].get("extend_dp", 0), "max_abs_err": 0,
+            "ms": first["ms"], "plain_ms": plain_ms,
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None,
+            "latency_bound_ms": first["latency_bound_ms"],
+            "row_us": row_us, "batches_ms": [x["ms"] for x in per_batch],
+            "batches_jobs": [x["jobs"] for x in per_batch],
+            "batches_longest": [x["longest"] for x in per_batch],
+            "rows": first["rows"], "cells": first["cells"],
+            "checks": checks}
+
+
 SOURCES = {
     "search_step": ("ibwa_tpu_torch/csrc/search_step.cu",
                     "ibwa_tpu/align/engine_jax.py:243"),
@@ -1635,6 +2034,8 @@ SOURCES = {
                     "ibwa_tpu/align/engine_jax.py:775"),
     "search_chunk": ("ibwa_tpu_torch/csrc/search_chunk.cu",
                      "ibwa_tpu/align/engine_jax.py:888"),
+    "extend_dp": ("ibwa_tpu_torch/csrc/extend_dp.cu",
+                  "ibwa_tpu/ops/dp.py:46"),
 }
 # kernels whose device code runs on the aln path as a stage of another
 # kernel's launch (their own entries stay, for the check and the plain
@@ -1806,6 +2207,12 @@ def main() -> int:
     sampe_row = run_sampe_phase(fa, fqs, warp_us["b"])
     launches["lf_walk"] = sampe_row.pop("launches")
     rows["lf_walk"].update(sampe_row)
+    stamp("sampe and samse")
+
+    # ---- 4e. bwasw: K9 on its own and the long reads' seed extensions
+    rows["extend_dp"] = run_bwasw_phase(fa, dev)
+    launches["extend_dp"] = rows["extend_dp"].pop("launches")
+    stamp("bwasw")
     for name in WITHIN:
         launches[name] = launches.get(host_kernel(name), 0)
     for name in rows:

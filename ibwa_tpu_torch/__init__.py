@@ -2,12 +2,13 @@
 
 A port of `ibwa_tpu` (JAX/XLA/Pallas) to PyTorch on NVIDIA Hopper, slice by
 slice: so far `index`, `aln`, `samse`, `sampe` (whose SA walks the SA
-walker prefills on the device) and the dependent-gather probe.  The
-package stands alone: every module imports `torch`, never `jax`, and
-nothing of `ibwa_tpu`.  The host code it needs (index build and load, read
-and .sai I/O, the native C++ search and SAM stages, the host emulator, the
-SAM modules, the libc RNG) is its own copy, under the same sub-package and
-file names as the original.
+walker prefills on the device), `bwasw` (whose seed extensions run on the
+device) and the dependent-gather probe.  The package stands alone: every
+module imports `torch`, never `jax`, and nothing of `ibwa_tpu`.  The host
+code it needs (index build and load, read and .sai I/O, the native C++
+search, SAM stages and `bwasw` driver, the host emulator, the SAM and
+`bwasw` modules, the libc RNG) is its own copy, under the same sub-package
+and file names as the original.
 
 Kernels (CUDA C++ for sm_90a, built at first use by `kernels.py`):
 
@@ -34,6 +35,9 @@ Kernels (CUDA C++ for sm_90a, built at first use by `kernels.py`):
   `engine_jax._run_search_persistent`)
 * `csrc/search_chunk.cu` — K8, a chunk's whole persistent search in one
   launch (replaces the `while_loop` of `engine_jax._run_search_persistent`)
+* `csrc/extend_dp.cu` — K9, a batch of `bwasw`'s banded seed extensions,
+  a warp a job (replaces the XLA scan `ibwa_tpu/ops/dp.py::_extend_scan`);
+  `bwasw/dp_glue.py` hands it the native driver's batches
 
 Each kernel has a plain PyTorch version in the module of its wrapper; a
 wrapper runs the plain version for CPU tensors and the kernel for CUDA

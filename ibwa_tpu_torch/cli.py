@@ -1,9 +1,10 @@
-"""Command-line interface of the port: `index`, `aln`, `samse` and `sampe`.
+"""Command-line interface of the port: `index`, `aln`, `samse`, `sampe`
+and `bwasw`.
 
 Usage: python -m ibwa_tpu_torch <command> [options]
 
-The other stages of `ibwa_tpu`'s CLI (`bwasw` and the tools) are not
-ported yet: they print that to stderr and return 2.
+The other commands of `ibwa_tpu`'s CLI (the tools) are not ported yet:
+they print that to stderr and return 2.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-NOT_PORTED = ("bwasw", "fa2pac", "pac2bwt", "pac2bwtgen", "bwtupdate",
+NOT_PORTED = ("fa2pac", "pac2bwt", "pac2bwtgen", "bwtupdate",
               "pac_rev", "bwt2sa", "pac2cspac", "stdsw", "qualfa2fq",
               "solid2fastq", "prepare-remap")
 
@@ -209,8 +210,54 @@ def cmd_sampe(argv: list[str]) -> int:
     return 0
 
 
+def cmd_bwasw(argv: list[str]) -> int:
+    """`bwasw` with the option surface of ibwa_tpu.cli.cmd_bwasw plus
+    --engine and --device: `torch` runs the native driver's seed-extension
+    batches with K9 on --device (cpu: its plain version), `native` runs
+    them on the host."""
+    ap = argparse.ArgumentParser(prog="ibwa-tpu-torch bwasw")
+    ap.add_argument("prefix")
+    ap.add_argument("query")
+    ap.add_argument("-a", type=int, default=1, help="match score")
+    ap.add_argument("-b", type=int, default=3, help="mismatch penalty")
+    ap.add_argument("-q", type=int, default=5, help="gap open penalty")
+    ap.add_argument("-r", type=int, default=2, help="gap extension penalty")
+    ap.add_argument("-w", type=int, default=50, help="band width")
+    ap.add_argument("-T", type=int, default=30, help="score threshold")
+    ap.add_argument("-z", type=int, default=1, help="Z-best")
+    ap.add_argument("-s", type=int, default=3, help="max seed interval")
+    ap.add_argument("-m", type=float, default=0.5, help="mask level")
+    ap.add_argument("-c", type=float, default=5.5, help="length coef")
+    ap.add_argument("-N", type=int, default=5, help="seeds to trigger rev")
+    ap.add_argument("-H", action="store_true", help="hard clipping")
+    ap.add_argument("-t", type=int, default=1, help="threads")
+    ap.add_argument("-f", default=None, help="output file [stdout]")
+    ap.add_argument("--engine", default="torch", choices=["torch", "native"])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the seed extensions (cuda, "
+                         "cuda:N, cpu)")
+    args = ap.parse_args(argv)
+    from .bwasw.aux import bsw2_aln
+    from .bwasw.core import Bsw2Opt
+    opt = Bsw2Opt(a=args.a, b=args.b, q=args.q, r=args.r, bw=args.w,
+                  t=args.T, z=args.z, is_=args.s, mask_level=args.m,
+                  coef=args.c, t_seeds=args.N,
+                  hard_clip=1 if args.H else 0, n_threads=args.t)
+    # bwtsw2_main.c:82-83: scale t and coef by the match score
+    opt.t *= opt.a
+    opt.coef *= opt.a
+    out = open(args.f, "w") if args.f else sys.stdout
+    try:
+        bsw2_aln(opt, args.prefix, args.query, out=out, engine=args.engine,
+                 device=args.device)
+    finally:
+        if args.f:
+            out.close()
+    return 0
+
+
 COMMANDS = {"index": cmd_index, "aln": cmd_aln, "samse": cmd_samse,
-            "sampe": cmd_sampe}
+            "sampe": cmd_sampe, "bwasw": cmd_bwasw}
 
 
 def main(argv: list[str] | None = None) -> int:

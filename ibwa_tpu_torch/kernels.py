@@ -71,6 +71,9 @@ _SIGNATURES = {
     "ibwa_lane_switch": [_P, _P],
     # the argument struct (align/engine.py::_ChunkArgs), prefetch, stream
     "ibwa_search_chunk": [_P, _I, _P],
+    # tgt, tgt_off, qry, qry_off, g0, band, ids, n_ids, matrix (host),
+    # gap_open, gap_ext, eh, out, stats, max_blocks, stream
+    "ibwa_extend_dp": [_P] * 7 + [_I, _P, _I, _I, _P, _P, _P, _I, _P],
 }
 
 

@@ -3,10 +3,11 @@
 The library is built on demand with g++ (no pip/pybind dependency). All
 entry points use plain C ABI + NumPy buffers.
 
-Copy of `ibwa_tpu/native/__init__.py`, trimmed to what the copied sources
+Copy of `ibwa_tpu/native/__init__.py`, with every source it builds
 (`src/core.cpp`, `src/sais_frugal.cpp`, `src/lf_step.h`,
-`src/sam_text.cpp`, `src/pe_stage.cpp`) export: `bwasw`'s source
-(`bsw2.cpp`) and its bindings come with that stage.  The `sampe` stage's
+`src/sam_text.cpp`, `src/pe_stage.cpp`, and `src/bsw2.cpp`, `bwasw`'s
+driver, whose copy returns its extension callback's status and takes its
+switches as arguments: see its header).  The `sampe` stage's
 own symbols (`ibwa_pe_*`, `ibwa_se_stage`, `ibwa_sai_scan`,
 `ibwa_interleave_blobs`) are bound where they are called, in
 `sam/pe_native.py`, as in `ibwa_tpu`.  The library
@@ -27,8 +28,9 @@ import threading
 import numpy as np
 
 _SRC_DIR = pathlib.Path(__file__).resolve().parent / "src"
-_SRCS = [_SRC_DIR / "core.cpp", _SRC_DIR / "pe_stage.cpp",
-         _SRC_DIR / "sais_frugal.cpp", _SRC_DIR / "sam_text.cpp"]
+_SRCS = [_SRC_DIR / "bsw2.cpp", _SRC_DIR / "core.cpp",
+         _SRC_DIR / "pe_stage.cpp", _SRC_DIR / "sais_frugal.cpp",
+         _SRC_DIR / "sam_text.cpp"]
 _HDRS = [_SRC_DIR / "lf_step.h"]
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / \
     "build" / "ibwa_tpu_torch"
@@ -142,6 +144,13 @@ def load() -> ctypes.CDLL:
             ctypes.c_int32, i32p]
         lib.ibwa_occ4.argtypes = [u32p, ctypes.c_uint32, u32p,
                                   ctypes.c_uint32, ctypes.c_uint32, u32p]
+        lib.ibwa_bsw2_core.argtypes = [
+            u32p, ctypes.c_uint32, u32p, ctypes.c_uint32, ctypes.c_uint32,
+            u32p, u8p, ctypes.c_int32,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            i64p, i32p, i64p, i32p, ctypes.c_int32]
+        lib.ibwa_bsw2_core.restype = ctypes.c_int32
         lib.ibwa_bwt_packed32.argtypes = [u8p, ctypes.c_uint32, u32p, u8p,
                                           ctypes.c_int32]
         lib.ibwa_bwt_packed32.restype = ctypes.c_int64
@@ -150,6 +159,26 @@ def load() -> ctypes.CDLL:
             ctypes.c_int64, u8p, ctypes.c_int32, ctypes.c_char_p,
             ctypes.c_int64, i32p]
         lib.ibwa_cal_md.restype = ctypes.c_int64
+        lib.ibwa_bsw2_new_ctx.argtypes = [
+            u32p, ctypes.c_uint32, u32p, ctypes.c_uint32, u32p,
+            ctypes.c_uint32, ctypes.c_uint32, u32p, u32p,
+            u8p, ctypes.c_int64, ctypes.c_int32, i64p, i64p,
+            u8p, i64p, ctypes.c_int64, i64p, i64p]
+        lib.ibwa_bsw2_new_ctx.restype = ctypes.c_void_p
+        lib.ibwa_bsw2_free_ctx.argtypes = [ctypes.c_void_p]
+        lib.ibwa_bsw2_run.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, u8p, i64p, u8p, i64p, u8p,
+            i64p, u64p,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_double, ctypes.c_double,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, f64p]
+        lib.ibwa_bsw2_run.restype = ctypes.c_int64
+        lib.ibwa_bsw2_text.argtypes = [ctypes.c_void_p]
+        lib.ibwa_bsw2_text.restype = ctypes.c_void_p
+        lib.ibwa_bsw2_set_extend_fn.argtypes = [ctypes.c_void_p]
+        lib.ibwa_bsw2_set_extend_fn.restype = None
         lib.ibwa_fastq_scan.argtypes = [
             u8p, ctypes.c_int64, i64p, u8p, i64p, u8p, i64p, u8p, i64p]
         lib.ibwa_fastq_scan.restype = ctypes.c_int64
@@ -421,6 +450,37 @@ def drand48_stream(state_x: int, n: int) -> tuple[np.ndarray, int]:
     lib.ibwa_drand48(st.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), n,
                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
     return out, int(st[0])
+
+
+def bsw2_core(fm, seq: np.ndarray, a: int, b: int, q: int, r: int,
+              t: int, bw: int, z: int, is_: int
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """Native BWA-SW core for one read strand (bsw2.cpp).
+
+    fm: FmIndex of the genome; seq: 2-bit codes (no N).  Returns two
+    int64 hit arrays [n, 9]: (k, l, flag, n_seeds, len, G, G2, beg, end)
+    — the duplicate-resolved wide and narrow lists."""
+    lib = load()
+    seq = np.ascontiguousarray(seq, dtype=np.uint8)
+    itl = np.ascontiguousarray(fm._interleaved, dtype=np.uint32)
+    l2 = np.ascontiguousarray(fm.L2, dtype=np.uint32)
+    sa = np.ascontiguousarray(fm.sa, dtype=np.uint32)
+    cap = 6 * max(len(seq), 8) + 64
+    out_b = np.empty((cap, 9), dtype=np.int64)
+    out_b1 = np.empty((cap, 9), dtype=np.int64)
+    n_b = np.zeros(1, dtype=np.int32)
+    n_b1 = np.zeros(1, dtype=np.int32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    rc = lib.ibwa_bsw2_core(
+        _u32(itl), fm.primary, _u32(l2), fm.seq_len, fm.sa_intv, _u32(sa),
+        seq.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(seq),
+        a, b, q, r, t, bw, z, is_,
+        out_b.ctypes.data_as(i64p), n_b.ctypes.data_as(i32p),
+        out_b1.ctypes.data_as(i64p), n_b1.ctypes.data_as(i32p), cap)
+    if rc != 0:
+        raise RuntimeError("ibwa_bsw2_core: hit capacity overflow")
+    return out_b[:int(n_b[0])].copy(), out_b1[:int(n_b1[0])].copy()
 
 
 def match_gap_batch(fm_fwd, fm_rev, seqs: list[np.ndarray],

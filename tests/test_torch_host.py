@@ -243,7 +243,7 @@ def test_load_read_batch_fields_equal(host_inputs):
 
 
 def test_cli_never_imports_the_jax_package(host_inputs, tmp_path):
-    """`bwasw` answers "not ported yet", and `index`, `aln`, `samse`,
+    """`stdsw` answers "not ported yet", and `index`, `aln`, `samse`,
     `sampe -R --device cpu` (K5's plain version prefilling the SA walks)
     and `sampe -R --engine native` (no prefill, whatever IBWA_PE_DEVICE
     says) run, in a process where `ibwa_tpu`, `jax` and `bench` cannot be
@@ -271,7 +271,7 @@ def test_cli_never_imports_the_jax_package(host_inputs, tmp_path):
         "import ibwa_tpu_torch.sam.dbset, ibwa_tpu_torch.sam.pe_native\n"
         "import ibwa_tpu_torch.sam.remap, ibwa_tpu_torch.sam.sampe\n"
         "from ibwa_tpu_torch import cli\n"
-        "rc = cli.main(['bwasw', 'a', 'b'])\n"
+        "rc = cli.main(['stdsw', 'a', 'b'])\n"
         f"rc2 = cli.main(['index', '-p', {p!r}, {str(fa)!r}])\n"
         f"rc2 += cli.main(['aln', '--engine', 'native', {p!r}, {str(fq)!r},"
         f" '-f', {str(sai)!r}])\n"
