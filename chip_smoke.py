@@ -72,10 +72,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         lowered), SAM byte-equal to --engine native at that size, 0 host
         walks and 0 refused values in every batch; and `samse` on end 1,
         one line per read
-     e. `bwasw`: K9 extend_dp against its plain version, bitwise (its
-        counters too), on tests/test_dp_device.py's job shapes and on jobs
-        beyond the JAX package's caps (targets to 8,000, queries to
-        3,000), a sample of each against the host kernel; 4,096 long reads
+     e. `bwasw`: K9 extend_dp (the redesign: a warp a job, the band's
+        window on a ring in shared memory, four cells a lane) against its
+        plain version, bitwise (its counters too, and the mode every job
+        ran on), on tests/test_dp_device.py's job shapes, on jobs beyond
+        the JAX package's caps (targets to 8,000, queries to 3,000) and on
+        bands of 200 (several passes of the warp a row, on the rings) and
+        700 (the second mode, the rows in global memory), the last two
+        with its first version too, a sample of each against the host
+        kernel; the launch's shape in each mode; 4,096 long reads
         of the smoke genome (400-999 bp, 2% substitutions, half
         reverse-complemented; one 10 Mbp chunk, four staged segments, a
         left and a right batch each), `bwasw --engine torch --device cuda`
@@ -84,13 +89,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         the torch route launches extend_dp and nothing else, once a batch,
         8 batches, and every job it leaves to the host is a counted gate,
         under-minimum or empty one; the native route launches nothing; the
-        first torch run's batches recorded: K9 against its plain version
-        on the first left and right batch, K9 timed on every batch beside
-        its bounds (bytes, operations, and the longest job's rows x one
-        row's chain, measured on one job), and on the first left batch
-        in the driver's job order against longest query first, in turns;
-        the staged native driver against the sequential one, SAM
-        byte-equal, the core's section timers on in both
+        first torch run's batches recorded: K9 and its first version
+        against the plain version on the first left and right batch, every
+        batch timed with the redesign and the first version in turns (new,
+        first, first, new; the two bitwise equal) beside its bounds (bytes,
+        operations, and the longest job's rows x one row's chain, measured
+        on one job for each design), and on the first left batch in the
+        driver's job order against longest query first, in turns; the
+        staged native driver against the sequential one, SAM byte-equal,
+        the core's section timers on in both
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
@@ -102,7 +109,11 @@ limit.
 
 `bound_ms` of the kernel table is the least time the card could take for
 the call: the larger of the bytes the call must move over 3.35 TB/s and
-its integer operations over 67 Tops/s (the card's non-tensor-core rate);
+its integer operations over the card's 32-bit integer rate: 64 a clock an
+SM (add, subtract, compare, min, max on compute capability 9.0, the CUDA
+C++ Programming Guide's table of arithmetic instruction throughput) times
+the SMs times `nvidia-smi --query-gpu=clocks.max.sm`, read in the run
+(~16.7 Tops/s at 132 SMs and 1,980 MHz);
 for the data-dependent kernels it counts the rows this run fetched (for
 lf_walk each distinct table row and sampled word once, `walk_footprint`,
 on the intervals `sampe` gave it).  The chained
@@ -141,7 +152,9 @@ OLD_DISPATCH = 131_072          # rows a dispatch of K5's first version
 MANY_BATCHES = 4                # sampe batches of the RATE_PAIRS run
 N_LONG = 4096                   # bwasw's long reads: one 10 Mbp chunk, four
                                 # staged segments of 1,024 reads
-EXT_OPS_PER_CELL = 40           # K9's integer operations a cell (estimate)
+EXT_OPS_PER_CELL = 18           # K9's integer operations a cell: the host
+                                # loop's body (core.cpp, ibwa_extend_aln)
+                                # counted, its own loop counter left out
 PROBE_STEPS, PROBE_DELTA = 256, 2048
 PROBE_LANES = [32, 256, 1024]   # 32: one warp, the fetch latency itself
 PROBE_TABLES = [("a", 500_000, 128),      # the TPU probe's shape, 256 MB
@@ -150,7 +163,17 @@ PROBE_TABLES = [("a", 500_000, 128),      # the TPU probe's shape, 256 MB
 TRACE_TRIES, TRACE_PAUSE_S = 4, 0.25   # profiler sessions, and the pause
                                        # before each one after the first
 HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 67e12
+INT32_OPS_PER_CLOCK_SM = 64
+INT_OPS_PER_S = INT32_OPS_PER_CLOCK_SM * 132 * 1.98e9   # set in main()
+WARP_ISSUE_PER_CLOCK_SM = 4     # warp instructions: one a scheduler
+WARP_ISSUE_PER_S = WARP_ISSUE_PER_CLOCK_SM * 132 * 1.98e9   # set in main()
+EXT_FLOOR_SHARE = 0.9           # of a batch's least time (latency
+                                # estimate, issue time): a K9 reading under
+                                # it is a broken one
+EXT_SLEEP_CYCLES = 20_000_000   # ~10 ms of the card ahead of K9's timed
+                                # launches, while the host queues them
+EXT_READS = ("new", "first", "first", "new", "new", "first")   # in turns
+EXT_GRIDS = (1, 2, 3, 4, 6)     # blocks an SM K9's grid is timed at
 REPO = pathlib.Path(__file__).resolve().parent
 WORK = REPO / ".bench" / "smoke"
 
@@ -265,6 +288,26 @@ def max_abs_err(got, want) -> int:
         d = (g.to(torch.int64) - w.to(torch.int64)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
     return err
+
+
+def int_ops_per_s(dev) -> tuple[float, float]:
+    """The card's 32-bit integer rate: INT32_OPS_PER_CLOCK_SM x its SMs x
+    its SM clock at most (`nvidia-smi --query-gpu=clocks.max.sm`); and its
+    warp instruction issue rate, WARP_ISSUE_PER_CLOCK_SM in place of the
+    integer operations."""
+    import torch
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rate = INT32_OPS_PER_CLOCK_SM * sms * float(mhz) * 1e6
+    issue = WARP_ISSUE_PER_CLOCK_SM * sms * float(mhz) * 1e6
+    log(f"32-bit integer rate {rate / 1e12:.3f} Tops/s: "
+        f"{INT32_OPS_PER_CLOCK_SM} a clock an SM x {sms} SMs x {mhz} MHz "
+        f"(clocks.max.sm); warp instructions issued at most "
+        f"{issue / 1e12:.4f} T/s ({WARP_ISSUE_PER_CLOCK_SM} a clock an SM)")
+    return rate, issue
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -1640,10 +1683,13 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
             "rows_fetched": fp["rows"], "sampled_words": fp["slots"]}
 
 
-def ext_jobs(rng, n: int, tmax: int, qmax: int, band: int) -> dict:
+def ext_jobs(rng, n: int, tmax: int, qmax: int, band: int,
+             g0_hi: int = 100) -> dict:
     """tests/test_dp_device.py's random extension jobs (70% of the queries
     a mutated copy of the target's start, some with an indel), as the
-    native driver hands a batch over."""
+    native driver hands a batch over; G0 below g0_hi (in the hundreds it
+    keeps a row's cells positive far off the diagonal, so the band bounds
+    the row)."""
     import numpy as np
     targets, queries = [], []
     for _ in range(n):
@@ -1662,7 +1708,7 @@ def ext_jobs(rng, n: int, tmax: int, qmax: int, band: int) -> dict:
         queries.append(q)
     bands = np.full(n, band, dtype=np.int32)
     bands[::5] = rng.integers(1, band + 1, len(bands[::5]))
-    return ext_batch(targets, queries, rng.integers(1, 100, n), bands)
+    return ext_batch(targets, queries, rng.integers(1, g0_hi, n), bands)
 
 
 def ext_batch(targets, queries, g0, bands, q: int = 5, r: int = 2) -> dict:
@@ -1700,20 +1746,38 @@ def long_ext_jobs(rng, lens) -> dict:
 
 
 def ext_args(b: dict, dev):
-    """(extend_scan's tensors on dev, the matrix), for the jobs the
-    device runs."""
+    """extend_scan's tensors on dev for the jobs the device runs; sets
+    b["widest"], their widest band (which picks K9's mode)."""
     import torch
     from ibwa_tpu_torch.ops import dp
     ids, _ = dp.device_jobs(b["tgt_off"], b["qry_off"], b["g0"], b["matrix"])
+    b["widest"] = int(b["band"][ids].max())
     up = lambda a: torch.from_numpy(a).to(dev)
     return (up(b["tgt_blob"]), up(b["tgt_off"]), up(b["qry_blob"]),
             up(b["qry_off"]), up(b["g0"]), up(b["band"]), up(ids))
 
 
-def check_extend_batch(label: str, b: dict, dev) -> dict:
+# K9's two entries: the redesign on bwasw's path, and its first version,
+# kept to be timed beside it
+EXT_SCAN = {"new": "extend_scan", "first": "extend_scan_first"}
+EXT_ENTRY = {"new": "ibwa_extend_dp", "first": "ibwa_extend_dp_first"}
+
+
+def ext_call(design: str, b: dict, args):
+    """One launch of K9's `design` on a batch: (out, stats)."""
+    from ibwa_tpu_torch.ops import dp
+    fn = getattr(dp, EXT_SCAN[design])
+    extra = {"widest_band": b["widest"]} if design == "new" else {}
+    return fn(*args, b["matrix"], b["gap_open"], b["gap_ext"], **extra)
+
+
+def check_extend_batch(label: str, b: dict, dev, first: bool = False
+                       ) -> dict:
     """K9 against its plain version on one batch, bitwise, its counters
-    against the plain version's; a sample of its rows against the host
-    kernel (`native.extend_aln`)."""
+    against the plain version's, every job on the mode the batch's widest
+    band asks for (a ring in shared memory, or a row in global memory);
+    with `first` its first version too; a sample of its rows against the
+    host kernel (`native.extend_aln`)."""
     import numpy as np
     import torch
     from ibwa_tpu_torch import native
@@ -1722,13 +1786,25 @@ def check_extend_batch(label: str, b: dict, dev) -> dict:
     mat, q, r = b["matrix"], b["gap_open"], b["gap_ext"]
     want, wst = dp.extend_scan_plain(
         *args, torch.from_numpy(mat.astype(np.int64)), q, r)
-    got, st = dp.extend_scan(*args, mat, q, r)
+    wst = wst.tolist()
+    got, st = ext_call("new", b, args)
     torch.cuda.synchronize()
     err = max_abs_err([got], [want])
     st = st.tolist()
-    if err or st[1:] != wst[1:].tolist():
+    m = len(args[6])
+    rings = b["widest"] <= dp.RING_BAND
+    mode = "rings" if rings else "rows"
+    if err or st[1:4] != wst[1:] or st[4:] != ([m, 0] if rings else [0, m]):
         raise AssertionError(f"K9 {label}: kernel != plain (max abs err "
-                             f"{err}; counters {st} against {wst.tolist()})")
+                             f"{err}; counters {st} against {wst}, mode "
+                             f"{mode})")
+    if first:
+        got1, st1 = ext_call("first", b, args)
+        err1 = max_abs_err([got1], [want])
+        if err1 or st1.tolist()[1:] != wst[1:]:
+            raise AssertionError(f"K9's first version {label}: != plain "
+                                 f"(max abs err {err1}; counters "
+                                 f"{st1.tolist()} against {wst})")
     ids = args[6].cpu().numpy()
     got = got.cpu().numpy()
     sample = ids[np.linspace(0, len(ids) - 1, min(64, len(ids))).astype(int)]
@@ -1740,55 +1816,94 @@ def check_extend_batch(label: str, b: dict, dev) -> dict:
         if tuple(got[i]) != host:
             raise AssertionError(f"K9 {label} job {i}: {tuple(got[i])}, the "
                                  f"host kernel {host}")
-    log(f"K9 extend_dp {label}: {len(ids)} jobs of {len(b['g0'])} bitwise "
-        f"equal to the plain version ({st[1]} rows, {st[2]} cells, longest "
-        f"job {st[3]} rows, queue {st[0]}), {len(sample)} of them equal to "
-        f"the host kernel")
-    return {"jobs": len(ids), "rows": st[1], "cells": st[2],
-            "longest": st[3]}
+    log(f"K9 extend_dp {label}: {m} jobs of {len(b['g0'])} bitwise equal "
+        f"to the plain version ({st[1]} rows, {st[2]} cells, longest job "
+        f"{st[3]} rows, queue {st[0]}; widest band {b['widest']}, all "
+        f"on {mode}{', the first version too' if first else ''}), "
+        f"{len(sample)} of them equal to the host kernel")
+    return {"jobs": m, "rows": st[1], "cells": st[2], "longest": st[3],
+            "mode": mode}
 
 
-def ext_kernel_ms(b: dict, args, reps: int) -> float:
-    """K9's device ms on one batch (`args`: its tensors, `ext_args`): the
-    profiler's time of its kernel, or the CUDA-event span of the calls
-    where the profiler saw nothing."""
+def ext_kernel_fn(design: str, b: dict, args, blocks: int = 0):
+    """fn() that launches K9's `design` once on a batch (`args`, its
+    tensors) with its outputs made ahead: the queue's counter zeroed, then
+    the C entry; a grid of `blocks` where it is not 0 (the redesign)."""
+    import numpy as np
+    import torch
+    from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.ops import dp
-    fn = lambda: dp.extend_scan(*args, b["matrix"], b["gap_open"],
-                                b["gap_ext"])
-    fn()
+    n, dev = len(b["g0"]), args[0].device
+    out = torch.empty((n, 3), dtype=torch.int32, device=dev)
+    stats = torch.zeros(6, dtype=torch.int64, device=dev)
+    eh = None
+    if design == "first" or b["widest"] > dp.RING_BAND:
+        # as large as either entry's scratch (ops/dp.py)
+        eh = torch.empty(args[0].numel() + 12 * n + 4, dtype=torch.int32,
+                         device=dev)
+    entry = getattr(kernels.lib(), EXT_ENTRY[design])
+    mat = np.ascontiguousarray(b["matrix"], dtype=np.int32).reshape(25)
+    ptrs = [t.data_ptr() for t in args]
+    rest = (len(args[6]), mat.ctypes.data, b["gap_open"], b["gap_ext"],
+            None if eh is None else eh.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), blocks, torch.cuda.current_stream().cuda_stream)
 
-    def body():
+    def fn():
+        stats.zero_()
+        kernels.check(entry(*ptrs, *rest), EXT_ENTRY[design])
+    fn.buffers = (args, mat, eh, out)   # the pointers' owners live with fn
+    return fn
+
+
+def ext_kernel_ms(fn, reps: int, floor_ms: float, label: str) -> float:
+    """ms a launch of fn() (`ext_kernel_fn`) over `reps` launches: the
+    CUDA-event span of launches queued behind a kernel that sleeps
+    EXT_SLEEP_CYCLES, so the host has queued them all before the first
+    runs and the span is the card's time (K9 and a zeroing of 48 bytes a
+    launch).  A reading under floor_ms (EXT_FLOOR_SHARE of the batch's
+    least time) is taken again, up to TRACE_TRIES times; then the run
+    fails, with no number."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for attempt in range(1, TRACE_TRIES + 1):
+        torch.cuda._sleep(EXT_SLEEP_CYCLES)
+        start.record()
         for _ in range(reps):
             fn()
-
-    us = {k: v for k, v in traced(body, reps).items() if "extend_dp" in k}
-    if not us:
-        ms = event_ms(fn, reps)
-        log(f"K9 {ms:.5f} ms is the CUDA-event span of {reps} calls")
-        return ms
-    return sum(t for t, _ in us.values()) / 1e3
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+        if ms >= floor_ms:
+            return ms
+        log(f"K9 {label}: reading {attempt} of {TRACE_TRIES}, {ms:.5f} ms, "
+            f"is under the floor of {floor_ms:.5f} ms")
+    raise AssertionError(f"K9 {label}: every reading under the floor")
 
 
 def ext_bound(b: dict, counters: dict, row_us: float) -> dict:
     """K9's least time on a batch: bytes (the blobs, offsets, G0, bands
-    and job list in, each job's row of cells written once, 12 B a job
-    out) over the memory rate, or the counted cells' operations over the
-    integer rate; and the latency bound, the longest job's rows times one
-    row's dependent chain (`row_us`, measured)."""
+    and job list read once, 12 B a job written) over the memory rate, or
+    the counted cells' operations over the integer rate; and the latency
+    estimate, the longest job's rows times one row's dependent chain
+    (`row_us`, measured on one band-50 job)."""
     n = len(b["g0"])
     moved = (b["tgt_blob"].size + b["qry_blob"].size + 16 * (n + 1)
-             + 8 * n + 4 * counters["jobs"] + 4 * (int(b["tgt_off"][-1])
-                                                   + 2 * n) + 12 * n)
+             + 8 * n + 4 * counters["jobs"] + 12 * n)
     bd = bound(moved, counters["cells"] * EXT_OPS_PER_CELL)
+    bd["ops_bound_ms"] = (counters["cells"] * EXT_OPS_PER_CELL
+                          / INT_OPS_PER_S * 1e3)
     bd["latency_bound_ms"] = counters["longest"] * row_us / 1e3
     bd["bytes"] = moved
     return bd
 
 
-def ext_row_us(dev) -> float:
+def ext_row_us(dev, design: str = "new") -> float:
     """One row's dependent chain on the card: the marginal us a row of
     one job (one warp, band 50, a related query) between 1,000 and 2,000
-    rows, CUDA events."""
+    rows (`ext_kernel_ms`)."""
     import numpy as np
     rng = np.random.default_rng(SEED + 4)
     t = rng.integers(0, 4, 2200).astype(np.uint8)
@@ -1798,12 +1913,10 @@ def ext_row_us(dev) -> float:
         for _ in range(lq // 50):
             qq[rng.integers(0, lq)] = rng.integers(0, 4)
         b = ext_batch([t[:lq + 100]], [qq], [60], [50])
-        from ibwa_tpu_torch.ops import dp
         args = ext_args(b, dev)
-        fn = lambda: dp.extend_scan(*args, b["matrix"], 5, 2)
-        fn()
-        ms.append(event_ms(fn, 20))
-        rows.append(fn()[1][1].item())
+        ms.append(ext_kernel_ms(ext_kernel_fn(design, b, args), 20, 0.0,
+                                f"({design}) {lq} rows"))
+        rows.append(ext_call(design, b, args)[1][1].item())
     return (ms[1] - ms[0]) / (rows[1] - rows[0]) * 1e3
 
 
@@ -1859,19 +1972,22 @@ def bwasw_run(fa, fq, engine: str, out: pathlib.Path, dev) -> dict:
     return res
 
 
-def run_bwasw_phase(fa, dev) -> dict:
+def check_extend_alone(dev) -> dict:
     """K9 against its plain version on tests/test_dp_device.py's job
-    shapes and on jobs beyond the JAX caps; `bwasw --engine torch --device
-    cuda` against `--engine native` on N_LONG long reads, ROUNDS rounds in
-    turns, SAM byte-equal in each (the first torch run's batches recorded:
-    K9 against its plain version on the first left and right batch, and
-    timed on every batch); the staged driver against the sequential one
-    with no device route; the stage split of each run and the core's
-    sections.  Returns K9's row of the kernel table."""
+    shapes, on jobs beyond the JAX caps, and on bands wider than a pass of
+    the warp: 200 (several passes, on the rings) and 700 (the rows in
+    global memory); the launch's shape."""
     import numpy as np
-    import torch
-    from ibwa_tpu_torch import bwasw_ab
     from ibwa_tpu_torch.ops import dp
+    info = dp.extend_dp_info()
+    log(f"K9, a batch that fills the card: {info['warps']} warps a block, "
+        f"{info['cells_a_lane']} cells a lane, {info['blocks_an_sm']} "
+        f"blocks an SM, a grid of {info['grid']}; on the rings "
+        f"{info['smem_bytes']} B of static shared memory a block, a ring of "
+        f"{info['ring_cells']} cells holds a band of {info['ring_band']} "
+        f"(RING_BAND {dp.RING_BAND})")
+    if info["ring_band"] != dp.RING_BAND:
+        raise AssertionError("K9's ring band differs from ops/dp.py's")
     checks = {}
     for seed, tmax, qmax, band in ((1, 60, 40, 8), (2, 300, 200, 50),
                                    (3, 1500, 1100, 50), (4, 25, 90, 33)):
@@ -1882,6 +1998,195 @@ def run_bwasw_phase(fa, dev) -> dict:
         "beyond the JAX caps", long_ext_jobs(
             np.random.default_rng(SEED + 5),
             [(8000, 3000), (5000, 2500), (7000, 2200), (4500, 900)] * 8), dev)
+    for band in (200, 700):
+        checks[f"band {band}"] = check_extend_batch(
+            f"band {band}, G0 to 1,500", ext_jobs(
+                np.random.default_rng(SEED + band), 256, 3000, 1500, band,
+                g0_hi=1500), dev, first=True)
+    return checks
+
+
+def sass_row_loop(so: str) -> dict:
+    """K9's row loop in the SASS of its rings' entry (`cuobjdump -sass` of
+    the built library): the warp instructions from the loop's head to its
+    backward branch, and of them the pass loop's (the innermost loop).  A
+    row of at most a pass (a band up to 61) runs the body once but for the
+    two shuffles that carry a pass to the next.  {} where the dump or the
+    loops are not found (logged)."""
+    from ibwa_tpu_torch import kernels
+    tool = pathlib.Path(kernels._nvcc()).parent / "cuobjdump"
+    try:
+        text = subprocess.run([str(tool), "-sass", so], check=True,
+                              capture_output=True, text=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        log(f"K9's SASS: cuobjdump failed ({e})")
+        return {}
+    body = next((f for f in re.split(r"\n\s*Function : ", text)
+                 if re.match(r"\S*extend_dp_kernelILb1E", f)), "")
+    ins = [int(a, 16) for a in re.findall(r"/\*([0-9a-f]{4,})\*/\s+[@A-Z]",
+                                          body)]
+    loops = [(int(t, 16), int(a, 16)) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?BRA\s+(0x[0-9a-f]+)",
+        body) if int(t, 16) < int(a, 16)]
+    inside = lambda x, y: x != y and y[0] <= x[0] and x[1] <= y[1]
+    inner = [x for x in loops if not any(inside(y, x) for y in loops)]
+    outer = sorted((y for y in loops if inner and inside(inner[0], y)),
+                   key=lambda y: y[1] - y[0])
+    if len(inner) != 1 or not outer:
+        log(f"K9's SASS: no row loop around one pass loop ({loops})")
+        return {}
+    count = lambda x: sum(1 for a in ins if x[0] <= a <= x[1])
+    out = {"row_loop": count(outer[0]), "pass_loop": count(inner[0]),
+           "entry": len(ins)}
+    log(f"K9's SASS (rings' entry): {out['entry']} instructions, the row "
+        f"loop {out['row_loop']} of them, its pass loop {out['pass_loop']}")
+    return out
+
+
+def time_extend_batches(batches: list, dev, sass: dict) -> dict:
+    """K9 on a run's batches: against its plain version on the first left
+    and right batch (its first version too), each batch timed with the
+    redesign and the first version in turns (EXT_READS, three readings of
+    each; the first version bitwise equal to the redesign), bounds, one
+    row's chain of each design, the warp instructions of its rows at the
+    card's issue rate (`sass`: the row loop's); the grid's blocks an SM
+    (EXT_GRIDS) and the queue's order on the first left and right batch.
+    K9's row of the kernel table, but for its launches."""
+    import numpy as np
+    import torch
+    from ibwa_tpu_torch.ops import dp
+    checks = {}
+    for k, label in ((0, "the run's first left batch"),
+                     (1, "the run's first right batch")):
+        checks[label] = check_extend_batch(label, batches[k], dev,
+                                           first=True)
+    row_us = {d: ext_row_us(dev, d) for d in EXT_SCAN}
+    log(f"K9 one row's chain (band 50, one warp): redesign "
+        f"{row_us['new']:.4f} us, first version {row_us['first']:.4f} us")
+    fmt = lambda v: " / ".join(f"{x:.5f}" for x in v)
+    per_batch = []
+    for k, b in enumerate(batches):
+        args = ext_args(b, dev)
+        got, st = ext_call("new", b, args)
+        got1, _ = ext_call("first", b, args)
+        if not torch.equal(got, got1):
+            raise AssertionError(f"K9 batch {k}: the first version differs "
+                                 f"from the redesign")
+        st = st.tolist()
+        counters = {"jobs": len(args[6]), "rows": st[1], "cells": st[2],
+                    "longest": st[3]}
+        bd = ext_bound(b, counters, row_us["new"])
+        if sass:
+            bd["issue_ms"] = (counters["rows"] * sass["row_loop"]
+                              / WARP_ISSUE_PER_S * 1e3)
+        # the least time of each design's launch: its latency estimate, and
+        # for the redesign its issue time as well
+        floor = {"new": EXT_FLOOR_SHARE * max(bd["latency_bound_ms"],
+                                              bd.get("issue_ms", 0.0)),
+                 "first": EXT_FLOOR_SHARE * counters["longest"]
+                 * row_us["first"] / 1e3}
+        ms = {d: [] for d in EXT_SCAN}
+        for d in EXT_READS:
+            ms[d].append(ext_kernel_ms(ext_kernel_fn(d, b, args), 10,
+                                       floor[d], f"({d}) batch {k}"))
+        # the integer operations a cell each design's time would allow at
+        # the card's full integer rate
+        per_cell = {d: statistics.median(v) / 1e3 * INT_OPS_PER_S
+                    / counters["cells"] for d, v in ms.items()}
+        per_batch.append({"ms": statistics.median(ms["new"]),
+                          "first_ms": statistics.median(ms["first"]),
+                          "floor_ms": floor["new"],
+                          "ops_a_cell_at_rate": per_cell["new"],
+                          **counters, **bd})
+        shape = dp.extend_dp_info(counters["jobs"])
+        log(f"K9 on the run's batch {k} ({'left' if k % 2 == 0 else 'right'})"
+            f": {counters['jobs']} jobs ({shape['blocks_an_sm']} blocks an SM, "
+            f"a grid of {shape['grid']}), {counters['rows']} rows, "
+            f"{counters['cells']} cells, longest {counters['longest']} rows; "
+            f"in turns ({', '.join(EXT_READS)}) new {fmt(ms['new'])} ms, "
+            f"first {fmt(ms['first'])} ms; bounds "
+            f"{bd['bound_ms']:.5f} ms by {bd['bound_by']} (operations "
+            f"{bd['ops_bound_ms']:.5f}, {bd['bytes']} B), latency estimate "
+            f"{bd['latency_bound_ms']:.5f} ({counters['longest']} rows x "
+            f"{row_us['new']:.4f} us)"
+            + (f", issue {bd['issue_ms']:.5f} ({counters['rows']} rows x "
+               f"{sass['row_loop']} warp instructions; the redesign at "
+               f"{bd['issue_ms'] / statistics.median(ms['new']):.3f} of "
+               f"it)" if sass else "")
+            + f"; at the full integer rate the times allow "
+            f"{per_cell['new']:.1f} / {per_cell['first']:.1f} operations a "
+            f"cell (new / first)")
+    # the grid's blocks an SM on the first left and right batch, forward
+    # and back: the launch's own grid is 3 an SM (as many whole blocks an
+    # SM as a smaller batch has, at least 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid_ms = {}
+    for k in (0, 1):
+        b = batches[k]
+        args = ext_args(b, dev)
+        floor = per_batch[k]["floor_ms"]
+        gm = {g: [] for g in EXT_GRIDS}
+        for g in EXT_GRIDS + EXT_GRIDS[::-1]:
+            gm[g].append(ext_kernel_ms(
+                ext_kernel_fn("new", b, args, g * sms), 10, floor,
+                f"batch {k}, {g} blocks an SM"))
+        grid_ms[k] = {g: statistics.median(v) for g, v in gm.items()}
+        log(f"K9 on batch {k}, grids of " + "; ".join(
+            f"{g} blocks an SM {fmt(v)}" for g, v in gm.items()) + " ms")
+    # the queue's order on the first left batch: the driver's against
+    # longest query first (ext_args' order), in turns
+    b0 = batches[0]
+    args = ext_args(b0, dev)
+    orders = {"longest first": args,
+              "the driver's": args[:6] + (torch.sort(args[6]).values,)}
+    floor = per_batch[0]["floor_ms"]
+    order_ms = {name: [] for name in orders}
+    for r in range(2):
+        for name in orders if r == 0 else list(orders)[::-1]:
+            order_ms[name].append(ext_kernel_ms(
+                ext_kernel_fn("new", b0, orders[name]), 10, floor,
+                f"batch 0, {name}"))
+    log(f"K9 on batch 0, the jobs in the driver's order against longest "
+        f"query first, in turns: " + "; ".join(
+            f"{name} {fmt(v)} ms" for name, v in order_ms.items()))
+    mat64 = torch.from_numpy(b0["matrix"].astype(np.int64))
+    plain_ms = event_ms(lambda: dp.extend_scan_plain(
+        *args, mat64, b0["gap_open"], b0["gap_ext"]), 1)
+    first = per_batch[0]
+    info = dp.extend_dp_info(first["jobs"])
+    return {"max_abs_err": 0, "ms": first["ms"],
+            "first_version_ms": first["first_ms"], "plain_ms": plain_ms,
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "ops_bound_ms": first["ops_bound_ms"],
+            "latency_bound_ms": first["latency_bound_ms"],
+            "issue_ms": first.get("issue_ms"), "sass": sass,
+            "row_us": row_us["new"], "first_version_row_us": row_us["first"],
+            "batches_ms": [x["ms"] for x in per_batch],
+            "first_version_batches_ms": [x["first_ms"] for x in per_batch],
+            "batches_jobs": [x["jobs"] for x in per_batch],
+            "batches_rows": [x["rows"] for x in per_batch],
+            "batches_longest": [x["longest"] for x in per_batch],
+            "grid_ms": {("left", "right")[k]: v for k, v in grid_ms.items()},
+            "rows": first["rows"], "cells": first["cells"],
+            "ops_a_cell_at_rate": first["ops_a_cell_at_rate"],
+            "mode": checks["the run's first left batch"]["mode"],
+            "blocks_an_sm": info["blocks_an_sm"], "grid": info["grid"],
+            "smem_bytes_a_block": info["smem_bytes"],
+            "checks": checks}
+
+
+def run_bwasw_phase(fa, dev) -> dict:
+    """K9 on its own (`check_extend_alone`); `bwasw --engine torch --device
+    cuda` against `--engine native` on N_LONG long reads, ROUNDS rounds in
+    turns, SAM byte-equal in each (the first torch run's batches recorded
+    and K9 held and timed on them, `time_extend_batches`); the staged
+    driver against the sequential one with no device route; the stage
+    split of each run and the core's sections.  Returns K9's row of the
+    kernel table."""
+    import numpy as np
+    from ibwa_tpu_torch import bwasw_ab
+    from ibwa_tpu_torch.ops import dp
+    checks = check_extend_alone(dev)
     fq = bwasw_ab.make_long_reads(fa, N_LONG,
                                   WORK / f"long_{SEED + 3}_{N_LONG}.fq")
     n_bases = sum(len(ln) - 1 for i, ln in enumerate(open(fq, "rb"))
@@ -1960,61 +2265,18 @@ def run_bwasw_phase(fa, dev) -> dict:
     if len(batches) != t0["batches"]:
         raise AssertionError(f"recorded {len(batches)} batches of "
                              f"{t0['batches']}")
-    for k, label in ((0, "the run's first left batch"),
-                     (1, "the run's first right batch")):
-        checks[label] = check_extend_batch(label, batches[k], dev)
-    row_us = ext_row_us(dev)
-    per_batch, share = [], 0.0
-    for k, b in enumerate(batches):
-        args = ext_args(b, dev)
-        st = dp.extend_scan(*args, b["matrix"], b["gap_open"],
-                            b["gap_ext"])[1].tolist()
-        counters = {"jobs": len(args[6]), "rows": st[1], "cells": st[2],
-                    "longest": st[3]}
-        ms = ext_kernel_ms(b, args, 10)
-        bd = ext_bound(b, counters, row_us)
-        per_batch.append({"ms": ms, **counters, **bd})
-        share += ms / 1e3
-        log(f"K9 on the run's batch {k} ({'left' if k % 2 == 0 else 'right'})"
-            f": {counters['jobs']} jobs, {counters['rows']} rows, "
-            f"{counters['cells']} cells, longest {counters['longest']} rows; "
-            f"{ms:.5f} ms; bounds {bd['bound_ms']:.5f} ms by "
-            f"{bd['bound_by']} ({bd['bytes']} B), latency "
-            f"{bd['latency_bound_ms']:.5f} ({counters['longest']} rows x "
-            f"{row_us:.4f} us)")
-    # the queue's order on the first left batch: the driver's against
-    # longest query first (ext_args' order), two readings each in turns
-    b0 = batches[0]
-    args = ext_args(b0, dev)
-    orders = {"longest first": args,
-              "the driver's": args[:6] + (torch.sort(args[6]).values,)}
-    order_ms = {name: [] for name in orders}
-    for r in range(2):
-        for name in orders if r == 0 else list(orders)[::-1]:
-            order_ms[name].append(ext_kernel_ms(b0, orders[name], 10))
-    log(f"K9 on batch 0, the jobs in the driver's order against longest "
-        f"query first, in turns: " + "; ".join(
-            f"{name} {' / '.join(f'{x:.5f}' for x in v)} ms"
-            for name, v in order_ms.items()))
+    from ibwa_tpu_torch import kernels
+    row = time_extend_batches(batches, dev,
+                              sass_row_loop(kernels.build_info["path"]))
+    row["checks"] = {**checks, **row["checks"]}
     walls = sorted(x["wall"] for x in runs["torch"])
-    mat64 = torch.from_numpy(b0["matrix"].astype(np.int64))
-    plain_ms = event_ms(lambda: dp.extend_scan_plain(
-        *args, mat64, b0["gap_open"], b0["gap_ext"]), 1)
+    share = sum(row["batches_ms"]) / 1e3
     log(f"K9 on all {len(batches)} batches {share * 1e3:.5f} ms = "
         f"{share / statistics.median(walls):.6f} of the median torch run's "
-        f"wall ({statistics.median(walls):.3f} s); one row's chain "
-        f"{row_us:.4f} us; the plain version on batch 0 {plain_ms:.3f} ms")
-    first = per_batch[0]
-    return {"launches": t0["launches"].get("extend_dp", 0), "max_abs_err": 0,
-            "ms": first["ms"], "plain_ms": plain_ms,
-            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "library_ms": None,
-            "latency_bound_ms": first["latency_bound_ms"],
-            "row_us": row_us, "batches_ms": [x["ms"] for x in per_batch],
-            "batches_jobs": [x["jobs"] for x in per_batch],
-            "batches_longest": [x["longest"] for x in per_batch],
-            "rows": first["rows"], "cells": first["cells"],
-            "checks": checks}
+        f"wall ({statistics.median(walls):.3f} s); the first version "
+        f"{sum(row['first_version_batches_ms']):.5f} ms; the plain version "
+        f"on batch 0 {row['plain_ms']:.3f} ms")
+    return {"launches": t0["launches"].get("extend_dp", 0), **row}
 
 
 SOURCES = {
@@ -2069,11 +2331,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    global CARD
+    global CARD, INT_OPS_PER_S, WARP_ISSUE_PER_S
     CARD = smi.splitlines()[0]
     dev = torch.device("cuda", 0)
     log(f"device {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+    INT_OPS_PER_S, WARP_ISSUE_PER_S = int_ops_per_s(dev)
 
     # ---- 2. build: nvcc and g++ side by side
     from ibwa_tpu_torch import kernels, native
@@ -2085,14 +2348,16 @@ def main() -> int:
         log(f"kernels built in {info['seconds']:.1f} s -> {info['path']}")
         host_lib.result()
     log(f"native host library ready; both builds {time.perf_counter() - t0:.1f} s")
-    entry = ""
+    entry, ptxas = "", {}
     for line in info["log"].splitlines():
         if "Compiling entry function" in line:
             found = re.search(r"\d+([a-z_]+_kernel)(?:I(\w+?)EEv)?", line)
             entry = f"{found.group(1)}<{found.group(2) or ''}>" if found \
                 else line.split("'")[1][-40:]
         elif "registers" in line or "spill" in line:
-            log(f"  ptxas {entry}: {line.split(' : ')[-1].strip()}")
+            what = line.split(' : ')[-1].strip()
+            ptxas.setdefault(entry, []).append(what)
+            log(f"  ptxas {entry}: {what}")
 
     # ---- 3. kernel vs plain version (K2 and K5 need the aln path's index)
     fa, fq = make_inputs()
@@ -2212,6 +2477,8 @@ def main() -> int:
     # ---- 4e. bwasw: K9 on its own and the long reads' seed extensions
     rows["extend_dp"] = run_bwasw_phase(fa, dev)
     launches["extend_dp"] = rows["extend_dp"].pop("launches")
+    rows["extend_dp"]["ptxas"] = {e: v for e, v in ptxas.items()
+                                  if e.startswith("extend_dp")}
     stamp("bwasw")
     for name in WITHIN:
         launches[name] = launches.get(host_kernel(name), 0)

@@ -74,6 +74,10 @@ _SIGNATURES = {
     # tgt, tgt_off, qry, qry_off, g0, band, ids, n_ids, matrix (host),
     # gap_open, gap_ext, eh, out, stats, max_blocks, stream
     "ibwa_extend_dp": [_P] * 7 + [_I, _P, _I, _I, _P, _P, _P, _I, _P],
+    # ... K9's first version, the same arguments
+    "ibwa_extend_dp_first": [_P] * 7 + [_I, _P, _I, _I, _P, _P, _P, _I, _P],
+    # n_ids, out int32[7]
+    "ibwa_extend_dp_info": [_L, _P],
 }
 
 

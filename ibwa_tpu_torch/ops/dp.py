@@ -13,11 +13,15 @@ G0 and a band a job, one 5x5 matrix and one gap pair a batch.  No job is
 padded or bucketed.
 
 `extend_scan` runs the listed jobs: on CUDA tensors one launch of
-`csrc/extend_dp.cu` (K9, a warp a job), on CPU tensors the plain version
-`extend_scan_plain`, on any other device it raises.  `extend_jobs` takes a
-batch as numpy arrays, runs on the device every job that is not empty and
-that `extend_gate_ok` admits, and the gate's refusals on the host kernel
-(`native.extend_aln`).
+`csrc/extend_dp.cu` (K9, a warp a job, the band's window on a ring in
+shared memory, or for a batch with a band wider than a ring holds the
+job's row in global memory), on CPU tensors the plain version
+`extend_scan_plain`, on any other device it raises.  `extend_scan_first`
+is the same through K9's first version (`csrc/extend_dp_first.cu`), which
+no path runs: it is kept to be timed beside the redesign.  `extend_jobs`
+takes a batch as numpy arrays, runs on the device every job that is not
+empty and that `extend_gate_ok` admits, and the gate's refusals on the
+host kernel (`native.extend_aln`).
 
 Value-exactness (each held by `tests/test_torch_dp.py` against the native
 scalar kernel and the JAX package's scan):
@@ -35,6 +39,8 @@ scalar kernel and the JAX package's scan):
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -180,45 +186,94 @@ def extend_scan_plain(tgt_blob: torch.Tensor, tgt_off: torch.Tensor,
     return out, stats
 
 
-def _launch_extend(tgt_blob, tgt_off, qry_blob, qry_off, g0, band, ids,
-                   matrix: np.ndarray, gap_open: int, gap_ext: int,
-                   stream: int, max_blocks: int = 0
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of `csrc/extend_dp.cu` on the listed jobs, as
-    `extend_scan_plain` returns them but with stats[0] the job queue's
-    final count (>= the jobs).  No checks: `extend_scan` makes them."""
+# the widest band a ring of K9 holds (`kRingBand` in csrc/extend_dp.cu: a
+# row touches 2 band + 9 cells of a 512-cell ring); a batch with a wider
+# band runs on rows in global memory
+RING_BAND = 251
+
+
+def extend_dp_info(n_ids: int = 1 << 40) -> dict:
+    """K9's launch shape for a batch of n_ids jobs (by default one that
+    fills the card; `ibwa_extend_dp_info`): warps a block, cells a lane,
+    ring cells, the widest band a ring holds, the blocks an SM, the grid,
+    and the static shared bytes a block of the rings' mode."""
+    buf = (ctypes.c_int * 7)()
+    rc = kernels.lib().ibwa_extend_dp_info(n_ids, buf)
+    kernels.check(rc, "extend_dp_info")
+    return dict(zip(("warps", "cells_a_lane", "ring_cells", "ring_band",
+                     "blocks_an_sm", "grid", "smem_bytes"), buf))
+
+
+def _launch(entry: str, name: str, n_stats: int, eh, tgt_blob, tgt_off,
+            qry_blob, qry_off, g0, band, ids, matrix: np.ndarray,
+            gap_open: int, gap_ext: int, stream: int, max_blocks: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the C entry `entry` (both of K9's take the same
+    arguments), counted as `name`."""
     dev = tgt_blob.device
     n = g0.shape[0]
     out = torch.zeros((n, 3), dtype=torch.int32, device=dev)
     out[:, 0] = -1
-    stats = torch.zeros(4, dtype=torch.int64, device=dev)
-    # each job's E/H row, len1 + 2 cells, at tgt_off[i] + 2 i (the blob
-    # holds tgt_off[n] bases: its size needs no read-back)
-    eh = torch.empty(tgt_blob.numel() + 2 * n, dtype=torch.int32, device=dev)
+    stats = torch.zeros(n_stats, dtype=torch.int64, device=dev)
     mat = np.ascontiguousarray(matrix, dtype=np.int32).reshape(25)
-    rc = kernels.lib().ibwa_extend_dp(
+    rc = getattr(kernels.lib(), entry)(
         tgt_blob.data_ptr(), tgt_off.data_ptr(), qry_blob.data_ptr(),
         qry_off.data_ptr(), g0.data_ptr(), band.data_ptr(), ids.data_ptr(),
-        ids.shape[0], mat.ctypes.data, gap_open, gap_ext, eh.data_ptr(),
-        out.data_ptr(), stats.data_ptr(), max_blocks, stream)
-    kernels.check(rc, "extend_dp")
+        ids.shape[0], mat.ctypes.data, gap_open, gap_ext,
+        None if eh is None else eh.data_ptr(), out.data_ptr(),
+        stats.data_ptr(), max_blocks, stream)
+    kernels.check(rc, name)
     if ids.shape[0]:
-        kernels.launches["extend_dp"] += 1
+        kernels.launches[name] += 1
     return out, stats
 
 
-def extend_scan(tgt_blob: torch.Tensor, tgt_off: torch.Tensor,
-                qry_blob: torch.Tensor, qry_off: torch.Tensor,
-                g0: torch.Tensor, band: torch.Tensor, ids: torch.Tensor,
-                matrix: np.ndarray, gap_open: int, gap_ext: int
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The extensions of the jobs `ids` (each non-empty and admitted by
-    `extend_gate_ok`): `extend_scan_plain` for CPU tensors, one launch of
-    K9 for CUDA tensors (stats[0] is then the queue's count).
+def _launch_extend(tgt_blob, tgt_off, qry_blob, qry_off, g0, band, ids,
+                   matrix: np.ndarray, gap_open: int, gap_ext: int,
+                   stream: int, max_blocks: int = 0,
+                   widest_band: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of `csrc/extend_dp.cu` on the listed jobs, as
+    `extend_scan_plain` returns them but with stats[0] the job queue's
+    final count (>= the jobs) and two more stats: [4] jobs run on a ring
+    in shared memory, [5] on a row in global memory.  The mode is the
+    rings' where the widest listed band fits them (`widest_band`, read
+    from the tensors if not given), else the rows', whose scratch is
+    allocated only then.  No checks: `extend_scan` makes them."""
+    if widest_band is None:
+        widest_band = (int(band[ids.to(torch.int64)].max())
+                       if ids.numel() else 0)
+    eh = None
+    if widest_band > RING_BAND:
+        # job i's row at the first multiple of 4 from tgt_off[i] + 12 i
+        # (the blob holds tgt_off[n] bases: its size needs no read-back)
+        eh = torch.empty(tgt_blob.numel() + 12 * g0.shape[0] + 4,
+                         dtype=torch.int32, device=tgt_blob.device)
+    return _launch("ibwa_extend_dp", "extend_dp", 6, eh, tgt_blob, tgt_off,
+                   qry_blob, qry_off, g0, band, ids, matrix, gap_open,
+                   gap_ext, stream, max_blocks)
 
-    tgt_blob, qry_blob: uint8; tgt_off, qry_off: int64[n + 1]; g0, band:
-    int32[n]; ids: int32[m]; all contiguous on one device.  matrix: the
-    25 scores (numpy)."""
+
+def _launch_extend_first(tgt_blob, tgt_off, qry_blob, qry_off, g0, band,
+                         ids, matrix: np.ndarray, gap_open: int,
+                         gap_ext: int, stream: int, max_blocks: int = 0
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K9's first version (`csrc/extend_dp_first.cu`: the
+    job's whole row in global memory, 32 cells a stride), as
+    `_launch_extend` returns it but with stats int64[4]."""
+    # each job's E/H row, len1 + 2 cells, at tgt_off[i] + 2 i
+    eh = torch.empty(tgt_blob.numel() + 2 * g0.shape[0], dtype=torch.int32,
+                     device=tgt_blob.device)
+    return _launch("ibwa_extend_dp_first", "extend_dp_first", 4, eh,
+                   tgt_blob, tgt_off, qry_blob, qry_off, g0, band, ids,
+                   matrix, gap_open, gap_ext, stream, max_blocks)
+
+
+def _scan(launch, tgt_blob, tgt_off, qry_blob, qry_off, g0, band, ids,
+          matrix, gap_open: int, gap_ext: int, **kw
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The checks, then the plain version for CPU tensors or `launch` on
+    the current stream for CUDA tensors."""
     n = g0.shape[0]
     dev = tgt_blob.device
     for t, dt, shape in ((tgt_blob, torch.uint8, None),
@@ -243,9 +298,43 @@ def extend_scan(tgt_blob: torch.Tensor, tgt_off: torch.Tensor,
                                  gap_open, gap_ext)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch_extend(tgt_blob, tgt_off, qry_blob, qry_off, g0, band,
-                          ids, matrix, gap_open, gap_ext,
-                          torch.cuda.current_stream(dev).cuda_stream)
+    return launch(tgt_blob, tgt_off, qry_blob, qry_off, g0, band, ids,
+                  matrix, gap_open, gap_ext,
+                  torch.cuda.current_stream(dev).cuda_stream, **kw)
+
+
+def extend_scan(tgt_blob: torch.Tensor, tgt_off: torch.Tensor,
+                qry_blob: torch.Tensor, qry_off: torch.Tensor,
+                g0: torch.Tensor, band: torch.Tensor, ids: torch.Tensor,
+                matrix: np.ndarray, gap_open: int, gap_ext: int,
+                widest_band: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The extensions of the jobs `ids` (each non-empty and admitted by
+    `extend_gate_ok`): `extend_scan_plain` for CPU tensors, one launch of
+    K9 for CUDA tensors (stats[0] is then the queue's count, and stats[4]
+    and [5] the jobs run on rings in shared memory and on rows in global
+    memory).
+
+    tgt_blob, qry_blob: uint8; tgt_off, qry_off: int64[n + 1]; g0, band:
+    int32[n]; ids: int32[m]; all contiguous on one device.  matrix: the
+    25 scores (numpy).  widest_band: the largest band of the listed jobs,
+    where the caller holds it (else it is read from the tensors, a wait
+    for the card)."""
+    return _scan(_launch_extend, tgt_blob, tgt_off, qry_blob, qry_off, g0,
+                 band, ids, matrix, gap_open, gap_ext,
+                 widest_band=widest_band)
+
+
+def extend_scan_first(tgt_blob: torch.Tensor, tgt_off: torch.Tensor,
+                      qry_blob: torch.Tensor, qry_off: torch.Tensor,
+                      g0: torch.Tensor, band: torch.Tensor,
+                      ids: torch.Tensor, matrix: np.ndarray, gap_open: int,
+                      gap_ext: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`extend_scan` through K9's first version on CUDA tensors (the plain
+    version on CPU tensors).  No path runs it: `chip_smoke.py` times it
+    beside the redesign."""
+    return _scan(_launch_extend_first, tgt_blob, tgt_off, qry_blob,
+                 qry_off, g0, band, ids, matrix, gap_open, gap_ext)
 
 
 def device_jobs(tgt_off: np.ndarray, qry_off: np.ndarray, g0: np.ndarray,
@@ -285,7 +374,8 @@ def extend_jobs(tgt_blob: np.ndarray, tgt_off: np.ndarray,
         got, st = extend_scan(up(tgt_blob), up(tgt_off), up(qry_blob),
                               up(qry_off), up(g0.astype(np.int32)),
                               up(band.astype(np.int32)), up(ids), matrix,
-                              int(gap_open), int(gap_ext))
+                              int(gap_open), int(gap_ext),
+                              widest_band=int(band[ids].max()))
         if dev.type == "cuda":
             pinned = torch.empty(got.shape, dtype=got.dtype, pin_memory=True)
             pinned.copy_(got, non_blocking=True)
