@@ -98,11 +98,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         driver's job order against longest query first, in turns; the
         staged native driver against the sequential one, SAM byte-equal,
         the core's section timers on in both
+     f. several devices (B8; run after c, on the smoke chunk and reads):
+        the block table split by rows into 2 and 4 ranges on this card
+        (`shard_pair`, each range an allocation of its own); the sharded
+        instantiations of width_pass and search_chunk against the flat
+        ones (both step modes) and against their plain versions over the
+        split table, bitwise, then timed in turns with the flat ones
+        (flat, 2, 4, 4, 2, flat); `aln` device-only over `--device cuda:0`,
+        `--device cuda:0,cuda:0` (two entries: reads split, a table and a
+        stream each) and `--device cuda:0,cuda:0 --idx 2` (one entry over a
+        split table), three rounds in turns, every .sai byte-equal to
+        `--engine native`'s, one width pass and one chunk search launch per
+        entry and chunk (the split run's through the sharded
+        instantiations, whose launches B8's rows count); with several
+        cards the same over cuda:0,cuda:1 (peer reads), else a line saying
+        it was not run
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
      whose launches they carry.
-  5. the result lines: the card, the kernel table, and the contract line
+  5. the result lines: the card, the kernel table (B8 as the rows
+     width_pass_sharded and search_chunk_sharded), and the contract line
 
 Every line of the log after the card is known names the card and its power
 limit.
@@ -174,6 +190,8 @@ EXT_SLEEP_CYCLES = 20_000_000   # ~10 ms of the card ahead of K9's timed
                                 # launches, while the host queues them
 EXT_READS = ("new", "first", "first", "new", "new", "first")   # in turns
 EXT_GRIDS = (1, 2, 3, 4, 6)     # blocks an SM K9's grid is timed at
+MESH_IDX = (2, 4)               # row ranges the smoke splits the table in
+MESH_TURNS = ("flat", 2, 4, 4, 2, "flat")   # B8's timing order
 REPO = pathlib.Path(__file__).resolve().parent
 WORK = REPO / ".bench" / "smoke"
 
@@ -642,10 +660,11 @@ def launch_chunk(cfg, fm, args, n_lanes: int, mode: int, big=None):
         torch.cuda.current_stream().cuda_stream, mode)
 
 
-def time_search_chunk(cfg, fm, args, reps: int, mode: int) -> float:
-    """Device ms of one `search_chunk` launch on the chunk `args`; where
-    the profiler sees nothing, the CUDA-event span of the launches alone,
-    on planes made before."""
+def time_search_chunk(cfg, fm, args, reps: int, mode: int,
+                      key: str = "search_chunk_kernel") -> float:
+    """Device ms of one `search_chunk` launch on the chunk `args` (the
+    kernel whose name holds `key`); where the profiler sees nothing, the
+    CUDA-event span of the launches alone, on planes made before."""
     import torch
     from ibwa_tpu_torch.align import engine
     n_lanes = min(B_LANES, args[1].shape[0])
@@ -656,7 +675,7 @@ def time_search_chunk(cfg, fm, args, reps: int, mode: int) -> float:
         for _ in range(reps):
             launch_chunk(cfg, fm, args, n_lanes, mode)
 
-    ms = kernel_ms(traced(body, reps), "search_chunk_kernel")
+    ms = kernel_ms(traced(body, reps), key)
     if ms > 0:
         return ms
     seqs, lens, md, hs, ssq, bad = args
@@ -2279,6 +2298,173 @@ def run_bwasw_phase(fa, dev) -> dict:
     return {"launches": t0["launches"].get("extend_dp", 0), **row}
 
 
+def check_sharded(fm, chunk: dict, dev, rows: dict, ptxas: dict) -> dict:
+    """B8 on the card: the smoke chunk's block table split by rows into
+    MESH_IDX ranges, each an allocation of its own on this card
+    (`shard_pair`).  The sharded instantiations of K6 and K8 against the
+    flat ones (w / bid / meta; hits, counts, flags and counters, with and
+    without the step's rows asked ahead) at every n_idx, and against their
+    plain versions over the same split table (`big_planes_plain` at every
+    n_idx; `run_search_plain`, whose rows come through the plain B8,
+    `gather_rows_sharded`, at the largest n_idx only, untraced: a traced
+    plain loop of ~330,000 launches takes ~90 s), bitwise; then K6 and K8
+    timed in turns (MESH_TURNS), flat and split.  A row reports the
+    largest n_idx, keeps the flat kernel's bound (the same bytes,
+    operations and chain) and both instantiations' ptxas lines."""
+    import torch
+    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch.align import engine
+    from ibwa_tpu_torch.fm.device import shard_pair
+    cfg, args = chunk["cfg"], chunk["args"]
+    seqs, lens, md, hs, ssq, bad = args
+    pairs = {"flat": fm, **{n: shard_pair(fm, [dev] * n) for n in MESH_IDX}}
+    widths = lambda f: engine.big_planes(cfg, f, seqs, lens, hs, ssq)
+    flat_big = widths(fm)
+    flat_out = {mode: launch_chunk(cfg, fm, args, B_LANES, mode)
+                for mode in (1, 0)}
+    as_int = lambda out: [t.to(torch.int64) for t in out]
+    plain = {"width_pass": {}, "search_chunk": {}}
+    seen = []
+    for n in MESH_IDX:
+        sp = pairs[n]
+        want_big = []
+        plain["width_pass"][n] = timed_ms(lambda: want_big.append(
+            engine.big_planes_plain(cfg, sp, seqs, lens, hs, ssq)), 1)[0]
+        got = widths(sp)
+        err = max(max_abs_err(got, flat_big), max_abs_err(got, want_big[-1]))
+        for mode in (1, 0):
+            out = launch_chunk(cfg, sp, args, B_LANES, mode)
+            err = max(err, max_abs_err(as_int(out), as_int(flat_out[mode])))
+        out_h, knh, kfb, counters = flat_out[1]
+        steps = counters.tolist()[1]
+        if n == MESH_IDX[-1]:
+            out_plain = []
+            plain["search_chunk"][n] = event_ms(lambda: out_plain.append(
+                engine.run_search_plain(cfg, sp, *args, n_lanes=B_LANES)), 1)
+            h, nh, fb, steps = out_plain[-1]
+            err = max(err, max_abs_err(
+                [engine.masked_hits(out_h.permute(1, 2, 0), knh, kfb), knh,
+                 kfb], [engine.masked_hits(h, nh, fb), nh, fb]))
+        if err or counters.tolist()[:2] != [0, steps]:
+            raise AssertionError(
+                f"B8 at n_idx={n}: the sharded kernels differ from the flat "
+                f"ones or the plain versions (max abs err {err}; steps "
+                f"{counters.tolist()[:2]} vs {steps})")
+        seen.append(f"n_idx {n} ({sp.shard_rows} rows a range)")
+    log(f"B8: width_pass and search_chunk over the table split in "
+        f"{', '.join(seen)} on {dev}: bitwise equal to the flat kernels "
+        f"(both step modes) and to the plain versions over the split table "
+        f"(plain width pass, device ms: {plain['width_pass']}; plain loop at "
+        f"n_idx {MESH_IDX[-1]}, the CUDA-event span of its launches, the "
+        f"host's included: {plain['search_chunk']} ms)")
+
+    times = {"width_pass": {}, "search_chunk": {}}
+    for turn in MESH_TURNS:
+        f = pairs[turn]
+        key = ("search_chunk_kernel" if turn == "flat"
+               else "search_chunk_sharded_kernel")
+        times["search_chunk"].setdefault(turn, []).append(
+            time_search_chunk(cfg, f, args, 10, 1, key))
+        times["width_pass"].setdefault(turn, []).append(
+            timed_ms(lambda: widths(f), 20)[0])
+    out = {}
+    for name in ("width_pass", "search_chunk"):
+        t = times[name]
+        med = {k: statistics.median(v) for k, v in t.items()}
+        lines = {e: v for e, v in ptxas.items() if e.startswith(name)
+                 and f"<Li{fm.wpb}E" in e}
+        out[f"{name}_sharded"] = {
+            "max_abs_err": 0, "n_idx": MESH_IDX[-1], "ms": med[MESH_IDX[-1]],
+            "plain_ms": plain[name][MESH_IDX[-1]],
+            **{k: rows[name][k] for k in ("bound_ms", "bound_by")},
+            **({"latency_bound_ms": rows[name]["latency_bound_ms"]}
+               if "latency_bound_ms" in rows[name] else {}),
+            "library_ms": None, "flat_ms": med["flat"],
+            "ms_by_n_idx": {str(k): med[k] for k in MESH_IDX},
+            "turns_ms": {str(k): v for k, v in t.items()},
+            "plain_ms_by_n_idx": {str(k): v for k, v in plain[name].items()},
+            "ptxas": lines}
+        log(f"B8 {name}: device ms in turns {' / '.join(map(str, MESH_TURNS))}"
+            f": " + "; ".join(f"{k}: {' '.join(f'{x:.5f}' for x in v)}"
+                              for k, v in t.items())
+            + f"; medians {med}; split / flat "
+            + ", ".join(f"n_idx {k} {med[k] / med['flat']:.4f}x"
+                        for k in MESH_IDX)
+            + f"; ptxas {lines}")
+    kernels.reset_launches()
+    return out
+
+
+def run_mesh_aln(fa, fq) -> dict:
+    """`aln` device-only over one entry (`--device cuda:0`), two entries on
+    the one card (`--device cuda:0,cuda:0`: reads split, a table each, a
+    stream each) and one entry whose table is split in two ranges on it
+    (`--device cuda:0,cuda:0 --idx 2`, B8), ROUNDS rounds in turns: every
+    .sai byte-equal to `--engine native`'s (4c), one width pass and one
+    chunk search launch per device entry and chunk, the split run's
+    through the sharded instantiations.  On several cards the same over
+    cuda:0,cuda:1 (the peer path); on one card that is not run.  Returns
+    the split run's launches, for B8's rows.  First the port's
+    `dryrun_multichip` over 4 entries on the visible cards."""
+    import torch
+    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch.align import engine
+    from ibwa_tpu_torch.parallel import mesh
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        mesh.dryrun_multichip(4)   # visible cards, else cuda:0 four times
+    log(out.getvalue().strip())
+    runs = {"one": ["--device", "cuda:0"],
+            "two": ["--device", "cuda:0,cuda:0"],
+            "split": ["--device", "cuda:0,cuda:0", "--idx", "2"]}
+    if torch.cuda.device_count() > 1:
+        runs.update(cards=["--device", "cuda:0,cuda:1"],
+                    cards_split=["--device", "cuda:0,cuda:1", "--idx", "2"])
+    else:
+        log("several cards: not run (one card visible); the peer reads of "
+            "a table split over cards and the dp scaling across cards are "
+            "not held here")
+    chunk_n = engine.PERSIST_N
+    want_launches = {
+        "one": dict.fromkeys(ALN_KERNELS, -(-N_READS // chunk_n)),
+        "two": dict.fromkeys(ALN_KERNELS, 2 * -(-N_READS // (2 * chunk_n))),
+        "split": {"width_pass_sharded": -(-N_READS // chunk_n),
+                  "search_chunk_sharded": -(-N_READS // chunk_n)},
+        "cards": dict.fromkeys(ALN_KERNELS,
+                               2 * -(-N_READS // (2 * chunk_n))),
+        "cards_split": {"width_pass_sharded": -(-N_READS // chunk_n),
+                        "search_chunk_sharded": -(-N_READS // chunk_n)}}
+    native = (WORK / "native.sai").read_bytes()
+    res = {name: [] for name in runs}
+    got_launches = {}
+    for r in range(ROUNDS):
+        for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            out = WORK / f"mesh_{name}.sai"
+            os.environ["IBWA_HOST_FRAC"] = "0"
+            kernels.reset_launches()
+            try:
+                res[name].append(run_aln([str(fa), str(fq), *runs[name]],
+                                         out))
+            finally:
+                os.environ.pop("IBWA_HOST_FRAC", None)
+            got = dict(kernels.launches)
+            if got != want_launches[name]:
+                raise AssertionError(f"aln {runs[name]} launched {got}, not "
+                                     f"{want_launches[name]}")
+            got_launches[name] = got
+            if out.read_bytes() != native:
+                raise AssertionError(f"round {r}: aln {runs[name]} .sai "
+                                     f"differs from --engine native")
+    for name, rr in res.items():
+        log(f"aln {' '.join(runs[name])} device-only, {ROUNDS} rounds in "
+            f"turns: reads/s of search wall "
+            f"{spread([x['reads'] / x['search_s'] for x in rr])}; .sai "
+            f"byte-equal to --engine native every round; launches "
+            f"{got_launches[name]}; steps {rr[0]['iterations']}, fallback "
+            f"{rr[0]['fallback_reads']}")
+    return got_launches["split"]
+
+
 SOURCES = {
     "search_step": ("ibwa_tpu_torch/csrc/search_step.cu",
                     "ibwa_tpu/align/engine_jax.py:243"),
@@ -2298,6 +2484,11 @@ SOURCES = {
                      "ibwa_tpu/align/engine_jax.py:888"),
     "extend_dp": ("ibwa_tpu_torch/csrc/extend_dp.cu",
                   "ibwa_tpu/ops/dp.py:46"),
+    # B8: the sharded branch of _gather_block, read where the rows lie
+    "width_pass_sharded": ("ibwa_tpu_torch/csrc/width_pass.cu",
+                           "ibwa_tpu/fm/device.py:286"),
+    "search_chunk_sharded": ("ibwa_tpu_torch/csrc/search_chunk.cu",
+                             "ibwa_tpu/fm/device.py:286"),
 }
 # kernels whose device code runs on the aln path as a stage of another
 # kernel's launch (their own entries stay, for the check and the plain
@@ -2461,6 +2652,13 @@ def main() -> int:
     profile_chunk(fms, fm, chunk)
     launches.update(aln_launches)
     stamp("aln")
+
+    # ---- 4f. several devices: B8's sharded instantiations against the
+    # flat ones, then aln over two entries and over a split table
+    rows.update(check_sharded(fm, chunk, dev, rows, ptxas))
+    stamp("B8 checks")
+    launches.update(run_mesh_aln(fa, fq))
+    stamp("aln over several entries")
 
     # ---- 4d. a whole aln batch dispatched ahead (C1), then sampe and
     # samse on the pairs

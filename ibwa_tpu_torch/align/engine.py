@@ -50,6 +50,7 @@ Port conventions:
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -61,8 +62,9 @@ import numpy as np
 import torch
 
 from .. import kernels, native
-from ..fm.device import (DeviceFmPair, _check_cuda_table, build_device_pair,
-                         occ1_pair, occ4_pair)
+from ..fm.device import (DeviceFmPair, Shards, build_device_pair, cuda_table,
+                         occ1_pair, occ1_pair_plain, occ4_pair,
+                         occ4_pair_plain, pair_to, shard_pair)
 from ..fm.fmindex import FmIndex
 from ..u32 import MASK, int_log2, wrap_i32
 from . import engine_ref
@@ -195,6 +197,17 @@ def _child_states(dev) -> torch.Tensor:
                         + [STATE_E], dtype=I64, device=dev)[None, :]
 
 
+def _occ(fm: DeviceFmPair):
+    """The (occ4, occ1) pair queries of the plain width pass and step:
+    the wrappers (K2 on a card, its plain version on the CPU), or, for a
+    table split by rows, the plain queries over the plain B8
+    (`gather_rows_sharded`), on any device: no K2 entry reads a split
+    table."""
+    if fm.shards:
+        return occ4_pair_plain, occ1_pair_plain
+    return occ4_pair, occ1_pair
+
+
 def _compute_widths(fm: DeviceFmPair, seqs: torch.Tensor, lens: torch.Tensor,
                     Lw: int):
     """bwt_cal_width (bwtaln.c:54-78), batched over [N, 2] lanes.
@@ -214,7 +227,7 @@ def _compute_widths(fm: DeviceFmPair, seqs: torch.Tensor, lens: torch.Tensor,
         c = sq[:, t]
         valid = t < lens2
         cn = torch.clamp(c, max=3)
-        o = occ1_pair(fm, strand, k, l, cn)
+        o = _occ(fm)[1](fm, strand, k, l, cn)
         base = fm.L2[cn]
         usable = c < 4
         k2 = torch.where(usable, (base + o[:, 0] + 1) & MASK, k)
@@ -267,10 +280,16 @@ def _check_tensor(who: str, name: str, t: torch.Tensor, dev, dtype,
             f"{dev}, got {t.dtype}{list(t.shape)} on {t.device}")
 
 
-def _check_index(fm: DeviceFmPair) -> None:
-    _check_cuda_table(fm)
-    if fm.L2.dtype != I64 or not fm.L2.is_contiguous():
-        raise ValueError("L2 must be contiguous int64")
+def _check_index(fm: DeviceFmPair) -> tuple[int, Shards]:
+    """Raise unless the index is what the search kernels take; returns
+    `cuda_table`'s (flat table address, shard table)."""
+    table = cuda_table(fm)
+    for name in ("L2", "l2diff", "primary"):
+        t = getattr(fm, name)
+        if t.dtype != I64 or not t.is_contiguous() or t.device != fm.device:
+            raise ValueError(f"{name} must be contiguous int64 on "
+                             f"{fm.device}")
+    return table
 
 
 def _launch_width_pass(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
@@ -285,17 +304,20 @@ def _launch_width_pass(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
             ("lens", lens, I64, (N,)),
             ("has_seed", has_seed, torch.bool, (N,))):
         _check_tensor("big_planes", name, t, dev, dtype, shape)
-    _check_index(fm)
+    blocks, shards = _check_index(fm)
     w, bid, meta = (torch.empty((N, 2, cfg.L + cfg.SL + 2), dtype=I64,
                                 device=dev) for _ in range(3))
-    rc = kernels.lib().ibwa_width_pass(
-        fm.blocks.data_ptr(), fm.primary.data_ptr(), fm.L2.data_ptr(),
+    name = "width_pass_sharded" if shards.n else "width_pass"
+    entry = getattr(kernels.lib(), f"ibwa_{name}")
+    rc = entry(
+        ctypes.addressof(shards) if shards.n else blocks,
+        fm.primary.data_ptr(), fm.L2.data_ptr(),
         fm.l2diff.data_ptr(), seqs.data_ptr(), seed_seqs.data_ptr(),
         lens.data_ptr(), has_seed.data_ptr(), w.data_ptr(), bid.data_ptr(),
         meta.data_ptr(), N, cfg.L, cfg.SL, fm.seq_len, fm.n_blk, fm.intv,
         stream)
-    kernels.check(rc, "width_pass")
-    kernels.launches["width_pass"] += 1
+    kernels.check(rc, name)
+    kernels.launches[name] += 1
     return w, bid, meta
 
 
@@ -306,7 +328,8 @@ def big_planes(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, has_seed,
 
     seqs uint8[N, 2, L], lens int64[N], has_seed bool[N], seed_seqs
     uint8[N, 2, SL].  CPU tensors: `big_planes_plain`.  CUDA tensors: one
-    launch of the kernel `csrc/width_pass.cu`."""
+    launch of the kernel `csrc/width_pass.cu`, its sharded instantiation
+    (B8) when the table is split."""
     dev = fm.device
     if dev.type == "cpu":
         return big_planes_plain(cfg, fm, seqs, lens, has_seed, seed_seqs)
@@ -364,7 +387,8 @@ def _search_step(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
     i2g = torch.clamp(i2, max=cfg.L - 1)  # gather index (finished lanes)
 
     # ---- occ4 at (k-1, l): the expansion AND the E-state extension
-    cnt = occ4_pair(fm, sidx, e_k, e_l)              # [B, 2, 4]
+    occ4, occ1 = _occ(fm)
+    cnt = occ4(fm, sidx, e_k, e_l)                   # [B, 2, 4]
     l2b = fm.L2[:4][None, :]
     kj = (l2b + cnt[:, 0] + 1) & MASK                # [B, 4]
     lj = (l2b + cnt[:, 1]) & MASK
@@ -489,7 +513,7 @@ def _search_step(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
         cont = ev & (ei9 > 0)
         bu = seqs[crid, e_a, torch.clamp(ei9 - 1, 0, cfg.L - 1)].to(I64)
         cu = torch.clamp(bu, max=3)
-        ou = occ1_pair(fm, sidx, ek9, el9, cu)        # [B, 2]
+        ou = occ1(fm, sidx, ek9, el9, cu)             # [B, 2]
         l2u = fm.L2[cu]
         k2u = (l2u + ou[:, 0] + 1) & MASK
         l2v = (l2u + ou[:, 1]) & MASK
@@ -553,7 +577,8 @@ _STATE_DTYPES = {"has_seed": torch.bool, "done": torch.bool,
 class _SearchCfg(ctypes.Structure):
     """What both search kernels take beside their own tensors, field for
     field the struct IbwaSearchCfg of csrc/search_step.cuh: the index, the
-    reads, then shapes, the config and the engine's constants."""
+    reads, then shapes, the config, the engine's constants and the row
+    ranges of a split table."""
 
     _fields_ = (
         [(name, ctypes.c_void_p)
@@ -565,13 +590,14 @@ class _SearchCfg(ctypes.Structure):
             "max_del_occ", "indel_end_skip", "max_top2", "max_entries",
             "max_seed_diff", "iter_cap", "gape_mode", "nonstop", "loggap",
             "max_seq", "e_unroll", "state_m", "state_i", "state_d",
-            "state_e")])
+            "state_e")]
+        + [("shards", Shards)])
 
 
 def _search_cfg(who: str, cfg: EngineConfig, fm: DeviceFmPair,
-                seqs: torch.Tensor) -> _SearchCfg:
+                seqs: torch.Tensor, split_ok: bool = False) -> _SearchCfg:
     """Check the index and the reads a search kernel is given and build
-    its `_SearchCfg`."""
+    its `_SearchCfg`; a split table only where `split_ok`."""
     if (seqs.device != fm.device or seqs.dtype != torch.uint8
             or seqs.dim() != 3 or tuple(seqs.shape[1:]) != (2, cfg.L)
             or seqs.shape[0] < 1 or not seqs.is_contiguous()):
@@ -580,9 +606,11 @@ def _search_cfg(who: str, cfg: EngineConfig, fm: DeviceFmPair,
     if cfg.acap % 32 or cfg.acap < 32:
         raise ValueError(f"{who}: ACAP={cfg.acap} must be a multiple "
                          "of 32 (one warp per lane row)")
-    _check_index(fm)
+    blocks, shards = _check_index(fm)
+    if shards.n and not split_ok:
+        raise ValueError(f"{who}: takes a flat table, the index is split")
     return _SearchCfg(
-        blocks=fm.blocks.data_ptr(), primary=fm.primary.data_ptr(),
+        blocks=blocks, shards=shards, primary=fm.primary.data_ptr(),
         L2=fm.L2.data_ptr(), l2diff=fm.l2diff.data_ptr(),
         seqs=seqs.data_ptr(), seq_len=fm.seq_len, n_blk=fm.n_blk,
         n_reads=seqs.shape[0], intv=fm.intv, hcap=HCAP, max_seq=MAX_SEQ,
@@ -1001,20 +1029,21 @@ def _launch_search_chunk(cfg: EngineConfig, fm: DeviceFmPair, seqs, big,
                          f"{seqs.shape[0]} rows of bases")
     args = _ChunkArgs(
         **{name: t.data_ptr() for name, (t, _, _) in named.items()},
-        c=_search_cfg("search_chunk", cfg, fm, seqs),
+        c=_search_cfg("search_chunk", cfg, fm, seqs, split_ok=True),
         t_end=-(-(MAX_ITERS * 8) // SWITCH_K) * SWITCH_K, B=n_lanes, N=N,
         switch_k=SWITCH_K)
+    name = "search_chunk_sharded" if args.c.shards.n else "search_chunk"
     rc = kernels.lib().ibwa_search_chunk(ctypes.byref(args), mode, stream)
-    kernels.check(rc, "search_chunk")
-    kernels.launches["search_chunk"] += 1
+    kernels.check(rc, name)
+    kernels.launches[name] += 1
     return out_h, out_nh, out_fb, counters
 
 
 def search_chunk(cfg: EngineConfig, fm: DeviceFmPair, seqs, big, lens,
                  max_diff0, has_seed, bad, n_lanes: int):
     """The whole persistent search of a chunk over its width planes `big`
-    (`big_planes`), in ONE launch of the kernel `csrc/search_chunk.cu`:
-    CUDA tensors only (the plain version is the phased loop,
+    (`big_planes`), in ONE launch of the kernel `csrc/search_chunk.cu` (its
+    sharded instantiation, B8, when the table is split): CUDA tensors only (the plain version is the phased loop,
     `run_search_phased`).  THE THREE PLANES OF `big` ARE UPDATED IN PLACE:
     a lane works on its read's rows where they are, so a second search
     needs them computed again.
@@ -1261,14 +1290,79 @@ def batch_config(seqs: list[np.ndarray], opt: GapOpt, seq_len: int):
     return cfg, lens, max_diff
 
 
+def devices_of(spec) -> list[torch.device]:
+    """The devices a device argument names: a torch.device or a name, a
+    list of them, or a comma list of names ("cuda:0,cuda:1"); "cuda"
+    without an index is every visible card, as the JAX engine takes
+    jax.devices().  A card may be named more than once."""
+    if isinstance(spec, str):
+        names = [n.strip() for n in spec.split(",") if n.strip()]
+    elif isinstance(spec, torch.device):
+        names = [spec]
+    else:
+        names = list(spec)
+    out = []
+    for name in names:
+        dev = torch.device(name)
+        if dev.type == "cuda" and dev.index is None:
+            count = torch.cuda.device_count()
+            if count == 0:
+                raise RuntimeError("no CUDA device is visible")
+            out += [torch.device("cuda", i) for i in range(count)]
+        else:
+            out.append(dev)
+    if not out:
+        raise ValueError(f"no device named in {spec!r}")
+    return out
+
+
+def entry_streams(dfms: list[DeviceFmPair]) -> list:
+    """A stream for each of several entries on cards, so that two entries
+    on one card run side by side; a single entry, or one on the CPU, runs
+    on the current stream (None)."""
+    return [torch.cuda.Stream(device=d.device)
+            if len(dfms) > 1 and d.device.type == "cuda" else None
+            for d in dfms]
+
+
+@contextlib.contextmanager
+def on_stream(st):
+    """`st` and its card current; nothing where `st` is None."""
+    if st is None:
+        yield
+        return
+    with torch.cuda.device(st.device), torch.cuda.stream(st):
+        yield
+
+
 class TorchAlnEngine:
     """Batched device search with native-host overflow fallback and the
-    hybrid host share (engine_jax.JaxAlnEngine on one torch device)."""
+    hybrid host share (engine_jax.JaxAlnEngine over torch devices).
 
-    def __init__(self, fms: tuple[FmIndex, FmIndex], device):
+    `device` names one device or several (`devices_of`).  Several: each
+    chunk is PERSIST_N reads per entry and entry d searches its contiguous
+    PERSIST_N slice (engine_jax.py:1061-1110 and mesh.py's `dp` split;
+    the tail at its own size, entries past its end idle), each entry's
+    launches on a stream of its own, every entry's chunk launched before
+    any is collected, and the chunks collected and decoded in read order.
+    With `n_idx` > 1 the devices are groups of n_idx (make_mesh_2d's
+    order): a group is one entry, whose table is split by rows over the
+    group (`shard_pair`, B8) and whose chunks run on the group's first
+    device.  Otherwise every entry holds its own copy of the table, the
+    same card named twice too."""
+
+    def __init__(self, fms: tuple[FmIndex, FmIndex], device, n_idx: int = 1):
         self.fms = fms
-        self.device = torch.device(device)
-        self.dfm = build_device_pair(fms[0], fms[1], self.device)
+        devs = devices_of(device)
+        if n_idx < 1 or len(devs) % n_idx:
+            raise ValueError(f"{len(devs)} devices do not make groups of "
+                             f"n_idx={n_idx}")
+        groups = [devs[i:i + n_idx] for i in range(0, len(devs), n_idx)]
+        base = build_device_pair(fms[0], fms[1], "cpu")
+        self.dfms = [shard_pair(base, g) if n_idx > 1 else pair_to(base, g[0])
+                     for g in groups]
+        self.dfm, self.device = self.dfms[0], self.dfms[0].device
+        self.streams = entry_streams(self.dfms)
         self.stats = {"device_reads": 0, "fallback_reads": 0,
                       "host_reads": 0, "iterations": 0}
         self.host_frac = float(os.environ.get("IBWA_HOST_FRAC",
@@ -1316,44 +1410,63 @@ class TorchAlnEngine:
                 timed_native, seqs[lo:hi], rseqs[lo:hi])))
 
         # ---- vectorized input packing of the device share, uploaded at
-        # once: an upload from pageable memory waits for the stream, so one
-        # between two chunks would wait for the chunk before
+        # once to each device that launches chunks: an upload from pageable
+        # memory waits for the stream, so one between two chunks would wait
+        # for the chunk before
         packed = _pack_reads(seqs[:host_lo], rseqs[:host_lo], lens[:host_lo],
                              max_diff[:host_lo], L, SL, opt.seed_len)
-        all_sq, all_ssq, all_hs, all_bad = (
-            torch.from_numpy(a).to(self.device) for a in packed)
-        all_lens, all_md = (torch.from_numpy(a[:host_lo]).to(self.device)
-                            for a in (lens, max_diff))
+        host_arrays = (*packed, lens[:host_lo], max_diff[:host_lo])
+        inputs = {}
+        for dfm in self.dfms:
+            if dfm.device not in inputs:
+                inputs[dfm.device] = [torch.from_numpy(a).to(dfm.device)
+                                      for a in host_arrays]
+        for dfm, st in zip(self.dfms, self.streams):
+            if st is not None:
+                st.wait_stream(torch.cuda.current_stream(dfm.device))
 
-        # ---- every chunk of the device share is launched before the
-        # first is read back (engine_jax.py:1061-1102), so the card runs
-        # on while the host downloads and decodes; eager torch has no
-        # compiled shapes: the tail chunk runs at its own size (no padding
-        # reads), on no more lanes than reads
+        # ---- every chunk of the device share, on every entry, is launched
+        # before the first is read back (engine_jax.py:1061-1102), so the
+        # cards run on while the host downloads and decodes; eager torch
+        # has no compiled shapes: the tail chunk runs at its own size (no
+        # padding reads), on no more lanes than reads
+        n_dev = len(self.dfms)
         pending = []
-        for lo in range(0, host_lo, PERSIST_N):
-            hi = min(lo + PERSIST_N, host_lo)
-            pending.append((lo, launch_search(
-                cfg, self.dfm, all_sq[lo:hi], all_lens[lo:hi],
-                all_md[lo:hi], all_hs[lo:hi], all_ssq[lo:hi],
-                all_bad[lo:hi], n_lanes=min(DEV_BATCH, hi - lo))))
+        for lo in range(0, host_lo, PERSIST_N * n_dev):
+            hi = min(lo + PERSIST_N * n_dev, host_lo)
+            parts = []
+            for d in range(min(n_dev, -(-(hi - lo) // PERSIST_N))):
+                a, b = lo + d * PERSIST_N, min(lo + (d + 1) * PERSIST_N, hi)
+                sq, ssq, hs, bad, dl, md = inputs[self.dfms[d].device]
+                with on_stream(self.streams[d]):
+                    parts.append((a, d, launch_search(
+                        cfg, self.dfms[d], sq[a:b], dl[a:b], md[a:b],
+                        hs[a:b], ssq[a:b], bad[a:b],
+                        n_lanes=min(DEV_BATCH, b - a))))
+            pending.append(parts)
 
         fb_jobs = []
         n_fb = 0
-        for lo, launched in pending:
-            harr, n_hits, fb, steps = collect_search(launched)
-            harr = harr.cpu().numpy()
-            nh = n_hits.cpu().numpy()
-            fb = fb.cpu().numpy()
-            self.stats["iterations"] += steps
-            chunk_fb = np.nonzero(fb)[0]
-            if len(chunk_fb):
-                idxs = [lo + int(b) for b in chunk_fb]
-                n_fb += len(idxs)
-                fb_jobs.append((idxs, self._pool.submit(
-                    native_align_batch, self.fms,
-                    [seqs[i] for i in idxs], [rseqs[i] for i in idxs], opt)))
-            _decode(harr, nh, fb, opt, out, lo)
+        for parts in pending:
+            chunk_steps_max = 0
+            for lo, d, launched in parts:
+                with on_stream(self.streams[d]):
+                    harr, n_hits, fb, steps = collect_search(launched)
+                    harr = harr.cpu().numpy()
+                    nh = n_hits.cpu().numpy()
+                    fb = fb.cpu().numpy()
+                chunk_steps_max = max(chunk_steps_max, steps)
+                chunk_fb = np.nonzero(fb)[0]
+                if len(chunk_fb):
+                    idxs = [lo + int(b) for b in chunk_fb]
+                    n_fb += len(idxs)
+                    fb_jobs.append((idxs, self._pool.submit(
+                        native_align_batch, self.fms,
+                        [seqs[i] for i in idxs], [rseqs[i] for i in idxs],
+                        opt)))
+                _decode(harr, nh, fb, opt, out, lo)
+            # the devices' longest search, as engine_jax.py:1104-1108
+            self.stats["iterations"] += chunk_steps_max
 
         t_dev = time.perf_counter() - t_start
         self.stats["device_reads"] += host_lo - n_fb

@@ -6,7 +6,9 @@ Index loading, read parsing (FASTQ and BAM) and the .sai writer are
 the port's own copies of `ibwa_tpu`'s host modules.
 
 Engines:
-  * "torch"  — the device search (align/engine.py) on `device`, with the
+  * "torch"  — the device search (align/engine.py) on `device` (one
+               device, or a comma list: the reads split over them, the
+               table split by rows over groups of `n_idx`), with the
                native host search for overflow reads and the hybrid share
   * "native" — the native C++ search for everything
   * "ref"    — the host emulator for everything (slow; testing only)
@@ -50,7 +52,8 @@ def _load(fq_path: str, opt: GapOpt):
 
 
 def aln_to_stream(prefix: str, fq_path: str, opt: GapOpt, out: BinaryIO,
-                  engine: str = "torch", device: str = "cuda") -> int:
+                  engine: str = "torch", device: str = "cuda",
+                  n_idx: int = 1) -> int:
     """Align every read of `fq_path` against the index at `prefix` and
     write the .sai stream to `out`; returns the read count.  Ends with an
     `[aln] stats {json}` line on stderr."""
@@ -58,8 +61,8 @@ def aln_to_stream(prefix: str, fq_path: str, opt: GapOpt, out: BinaryIO,
         raise ValueError(f"unknown engine {engine!r}")
     fms = (FmIndex(load_index(prefix, 0)), FmIndex(load_index(prefix, 1)))
     reads = _load(fq_path, opt)
-    eng = (torch_engine.TorchAlnEngine(fms, device) if engine == "torch"
-           else None)
+    eng = (torch_engine.TorchAlnEngine(fms, device, n_idx=n_idx)
+           if engine == "torch" else None)
     sai.write_header(out, opt)
     total = 0
     search_s = 0.0

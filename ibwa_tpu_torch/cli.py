@@ -1,20 +1,16 @@
-"""Command-line interface of the port: `index`, `aln`, `samse`, `sampe`
-and `bwasw`.
+"""Command-line interface of the port: every command of `ibwa_tpu`'s
+CLI: `index`, `aln`, `samse`, `sampe`, `bwasw`, the index sub-commands
+(`fa2pac`, `pac2bwt`, `pac2bwtgen`, `bwtupdate`, `pac_rev`, `bwt2sa`,
+`pac2cspac`) and the tools (`stdsw`, `qualfa2fq`, `solid2fastq`,
+`prepare-remap`), wired as `ibwa_tpu/cli.py` wires them.
 
 Usage: python -m ibwa_tpu_torch <command> [options]
-
-The other commands of `ibwa_tpu`'s CLI (the tools) are not ported yet:
-they print that to stderr and return 2.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-
-NOT_PORTED = ("fa2pac", "pac2bwt", "pac2bwtgen", "bwtupdate",
-              "pac_rev", "bwt2sa", "pac2cspac", "stdsw", "qualfa2fq",
-              "solid2fastq", "prepare-remap")
 
 
 def cmd_index(argv: list[str]) -> int:
@@ -36,7 +32,8 @@ def cmd_index(argv: list[str]) -> int:
 
 def cmd_aln(argv: list[str]) -> int:
     """`aln` with the reference option surface (ibwa_tpu.cli.cmd_aln) plus
-    --device; --engine picks torch (default), native or ref."""
+    --device (one device or a comma list) and --idx; --engine picks torch
+    (default), native or ref."""
     ap = argparse.ArgumentParser(prog="ibwa-tpu-torch aln")
     ap.add_argument("prefix")
     ap.add_argument("fastq")
@@ -73,7 +70,15 @@ def cmd_aln(argv: list[str]) -> int:
     ap.add_argument("--engine", default="torch",
                     choices=["torch", "native", "ref"])
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the search (cuda, cuda:N, cpu)")
+                    help="torch device(s) of the search: cuda (every "
+                         "visible card), cuda:N, a comma list such as "
+                         "cuda:0,cuda:1 (reads split over them; a card may "
+                         "be named twice), cpu")
+    ap.add_argument("--idx", type=int, default=1,
+                    help="split the FM block table by rows over groups of "
+                         "this many --device entries (for a table above "
+                         "one card's memory); each group searches on its "
+                         "first device [1: a copy per device]")
     args = ap.parse_args(argv)
 
     from .align.opts import BWA_MODE_GAPE, BWA_MODE_NONSTOP, GapOpt
@@ -114,7 +119,7 @@ def cmd_aln(argv: list[str]) -> int:
     out = open(args.f, "wb") if args.f else sys.stdout.buffer
     try:
         aln_to_stream(args.prefix, args.fastq, opt, out, engine=args.engine,
-                      device=args.device)
+                      device=args.device, n_idx=args.idx)
     finally:
         if args.f:
             out.close()
@@ -256,8 +261,112 @@ def cmd_bwasw(argv: list[str]) -> int:
     return 0
 
 
-COMMANDS = {"index": cmd_index, "aln": cmd_aln, "samse": cmd_samse,
-            "sampe": cmd_sampe, "bwasw": cmd_bwasw}
+def _two_arg(fn):
+    def cmd(argv: list[str]) -> int:
+        if len(argv) != 2:
+            print("expected: <in> <out>", file=sys.stderr)
+            return 1
+        fn(argv[0], argv[1])
+        return 0
+    return cmd
+
+
+def cmd_fa2pac(argv: list[str]) -> int:
+    from .index.builder import fa2pac
+    if not argv:
+        print("expected: <in.fasta> [<out.prefix>]", file=sys.stderr)
+        return 1
+    fa2pac(argv[0], argv[1] if len(argv) > 1 else None)
+    return 0
+
+
+def cmd_bwtupdate(argv: list[str]) -> int:
+    from .index.builder import bwtupdate
+    if len(argv) != 1:
+        print("expected: <the.bwt>", file=sys.stderr)
+        return 1
+    bwtupdate(argv[0])
+    return 0
+
+
+def cmd_bwt2sa(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(prog="ibwa-tpu-torch bwt2sa")
+    ap.add_argument("bwt")
+    ap.add_argument("sa")
+    ap.add_argument("-i", type=int, default=32, help="SA interval")
+    args = ap.parse_args(argv)
+    from .index.builder import bwt2sa
+    bwt2sa(args.bwt, args.sa, args.i)
+    return 0
+
+
+def cmd_stdsw(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(prog="ibwa-tpu-torch stdsw")
+    ap.add_argument("long_fa")
+    ap.add_argument("short_fa")
+    ap.add_argument("-T", type=int, default=1, help="minimum score")
+    ap.add_argument("-g", action="store_true", help="global alignment")
+    ap.add_argument("-f", action="store_true", help="forward strand only")
+    ap.add_argument("-r", action="store_true", help="reverse strand only")
+    args = ap.parse_args(argv)
+    strand = (1 if args.f else 0) | (2 if args.r else 0)
+    if strand == 0:
+        strand = 3
+    from .tools.stdsw import stdsw
+    stdsw(args.long_fa, args.short_fa, thres=args.T,
+          is_global=args.g, strand=strand)
+    return 0
+
+
+def cmd_qualfa2fq(argv: list[str]) -> int:
+    if len(argv) != 2:
+        print("usage: qualfa2fq <in.fasta> <in.qual>", file=sys.stderr)
+        return 1
+    from .tools.convert import qualfa2fq
+    qualfa2fq(argv[0], argv[1])
+    return 0
+
+
+def cmd_solid2fastq(argv: list[str]) -> int:
+    if len(argv) != 2:
+        print("usage: solid2fastq <in.prefix> <out.prefix>",
+              file=sys.stderr)
+        return 1
+    from .tools.convert import solid2fastq
+    solid2fastq(argv[0], argv[1])
+    return 0
+
+
+def cmd_prepare_remap(argv: list[str]) -> int:
+    """.remap generation from a GRC release tree (parse/prepare-grch37.pl)."""
+    from .tools.prepare_remap import main as pr_main
+    return pr_main(argv)
+
+
+def _index_cmd(name: str):
+    """An index sub-command over `index/builder.py`'s function `name`,
+    imported when the command runs."""
+    def cmd(argv: list[str]) -> int:
+        from .index import builder
+        return _two_arg(getattr(builder, name))(argv)
+    return cmd
+
+
+COMMANDS = {
+    "index": cmd_index, "aln": cmd_aln, "samse": cmd_samse,
+    "sampe": cmd_sampe, "bwasw": cmd_bwasw,
+    "fa2pac": cmd_fa2pac,
+    "pac2bwt": _index_cmd("pac2bwt"),
+    "pac2bwtgen": _index_cmd("pac2bwt"),  # same artifact; see builder.py
+    "bwtupdate": cmd_bwtupdate,
+    "pac_rev": _index_cmd("pac_rev"),
+    "bwt2sa": cmd_bwt2sa,
+    "pac2cspac": _index_cmd("pac2cspac"),
+    "stdsw": cmd_stdsw,
+    "qualfa2fq": cmd_qualfa2fq,
+    "solid2fastq": cmd_solid2fastq,
+    "prepare-remap": cmd_prepare_remap,
+}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -270,10 +379,6 @@ def main(argv: list[str] | None = None) -> int:
     cmd = argv[0]
     if cmd in COMMANDS:
         return COMMANDS[cmd](argv[1:])
-    if cmd in NOT_PORTED:
-        print(f"[ibwa-tpu-torch] '{cmd}' is not ported yet (use ibwa_tpu)",
-              file=sys.stderr)
-        return 2
     print(f"[ibwa-tpu-torch] unrecognized command '{cmd}'", file=sys.stderr)
     return 1
 

@@ -6,6 +6,24 @@
 //
 // A row is uint32[4 + WPB]: 4 occ checkpoint words, then the 2-bit packed
 // BWT text of the intv = 16 * WPB bases after the checkpoint.
+//
+// Where the rows are is the row source, a template parameter of the fetch
+// (B8): FlatRows, the whole table as one array, or ShardRows, the table
+// split by rows into contiguous ranges of `rows` rows each, every range its
+// own allocation (fm/device.py::shard_pair).  ShardRows replaces
+// ibwa_tpu/fm/device.py::_gather_block's sharded branch (:309-319): there
+// every shard fetched the rows it owned, zeros elsewhere, and the rows were
+// summed over the `idx` mesh axis; a sum of one-hot rows is the one owner's
+// row, so here the fetch reads that row where it lies, bitwise the same.
+//
+// Peer path: a shard may live on another card.  Its base pointer is then a
+// peer pointer, valid in the launching card's address space only after
+// fm/device.py::enable_peer has called the extern-C entry of peer.cu (which
+// raises where the cards cannot reach each other), and the load below reads
+// the remote row over NVLink; there is no collective per fetch and no copy
+// of the table.  A kernel reaches a shard only through its pointer in the
+// IbwaShards table of its arguments, which shard_pair fills from the
+// tensors it placed; nothing else in this package holds a peer address.
 #ifndef IBWA_FM_ROW_CUH
 #define IBWA_FM_ROW_CUH
 
@@ -13,6 +31,60 @@
 #include <cuda_runtime.h>
 
 namespace ibwa_fm {
+
+constexpr int kMaxShards = 8;
+
+// The row ranges of a split table.  fm/device.py::Shards mirrors this
+// layout field for field; n == 0 is a flat table.
+struct IbwaShards {
+  const uint32_t* base[kMaxShards];  // range i: rows [i * rows, (i+1) * rows)
+  int64_t rows;                      // rows per range
+  int n;                             // ranges in use
+};
+
+// Whether a launch's shard table can serve a table of `table_rows` rows:
+// flat (n == 0), or n ranges of `rows` rows that cover them, in 32 bits,
+// every base set.
+inline bool shards_ok(const IbwaShards& sh, int64_t table_rows) {
+  if (sh.n == 0) return true;
+  if (sh.n < 0 || sh.n > kMaxShards || sh.rows <= 0 ||
+      sh.rows * sh.n < table_rows || sh.rows * sh.n > 0xFFFFFFFFll)
+    return false;
+  for (int i = 0; i < sh.n; ++i)
+    if (sh.base[i] == nullptr) return false;
+  return true;
+}
+
+// The whole table as one array: row r at blocks + r * ROWW.
+struct FlatRows {
+  const uint32_t* blocks;
+  __device__ __forceinline__ static FlatRows of(const uint32_t* blocks,
+                                                const IbwaShards&) {
+    return {blocks};
+  }
+  template <int ROWW>
+  __device__ __forceinline__ const uint32_t* row(uint64_t r) const {
+    return blocks + r * ROWW;
+  }
+};
+
+// The table split by rows: row r is row r % rows of range r / rows.  `t`
+// points into the kernel's parameter space (a __grid_constant__ argument),
+// so the base pointer is read from the constant bank, with no copy of the
+// arguments in local memory.  Rows fit 32 bits (2 * n_blk < 2^32).
+struct ShardRows {
+  const IbwaShards* t;
+  uint32_t rows;
+  __device__ __forceinline__ static ShardRows of(const uint32_t*,
+                                                 const IbwaShards& sh) {
+    return {&sh, (uint32_t)sh.rows};
+  }
+  template <int ROWW>
+  __device__ __forceinline__ const uint32_t* row(uint64_t r) const {
+    const uint32_t q = (uint32_t)r / rows;
+    return t->base[q] + (uint64_t)((uint32_t)r - q * rows) * ROWW;
+  }
+};
 
 // 16-byte vector loads; 8-byte at intv 32, whose 24 B rows are only
 // 8-byte aligned.  Through the read-only path.
@@ -78,13 +150,13 @@ struct OccRow {
 };
 
 // Locate and fetch the row of bound k on `strand` (rows of strand 1 follow
-// the n_blk rows of strand 0): skip the sentinel row at `prim`, clamp to the
-// last base and the last block.  The load starts here and is not waited for,
-// so a caller that fetches the two bounds of an interval before it counts
-// either has both loads in flight.
-template <int WPB>
+// the n_blk rows of strand 0) from the row source `src`: skip the sentinel
+// row at `prim`, clamp to the last base and the last block.  The load starts
+// here and is not waited for, so a caller that fetches the two bounds of an
+// interval before it counts either has both loads in flight.
+template <int WPB, class Rows>
 __device__ __forceinline__ void fetch_occ_row(
-    const uint32_t* __restrict__ blocks, uint32_t k, uint32_t prim,
+    const Rows& src, uint32_t k, uint32_t prim,
     uint32_t seq_len, uint32_t n_blk, uint32_t strand, OccRow<WPB>& o) {
   constexpr int shift = WPB == 2 ? 5 : WPB == 4 ? 6 : 7;  // log2(intv)
   uint32_t kk = k - (k >= prim ? 1u : 0u);
@@ -93,8 +165,8 @@ __device__ __forceinline__ void fetch_occ_row(
   o.off = kk & ((1u << shift) - 1u);
   o.neg = k == kNeg1;
   o.full = k == seq_len;
-  load_row<4 + WPB>(blocks + ((uint64_t)strand * n_blk + blk) * (4 + WPB),
-                    o.r);
+  load_row<4 + WPB>(
+      src.template row<4 + WPB>((uint64_t)strand * n_blk + blk), o.r);
 }
 
 // occ(k, c) from k's fetched row; l2d[c] = L2[c + 1] - L2[c].  c >= 4 (no

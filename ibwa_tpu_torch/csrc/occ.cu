@@ -57,7 +57,8 @@ __global__ void occ_pair_kernel(const uint32_t* __restrict__ blocks,
   const uint32_t k = b ? (uint32_t)lq[q] : (uint32_t)kq[q] - 1u;
   const uint32_t s = (uint32_t)strand[q];
   OccRow<WPB> row;
-  fetch_occ_row<WPB>(blocks, k, (uint32_t)primary[s], seq_len, n_blk, s, row);
+  fetch_occ_row<WPB>(FlatRows{blocks}, k, (uint32_t)primary[s], seq_len,
+                     n_blk, s, row);
   const uint32_t l2d[4] = {(uint32_t)l2diff[0], (uint32_t)l2diff[1],
                            (uint32_t)l2diff[2], (uint32_t)l2diff[3]};
   if (C4) {

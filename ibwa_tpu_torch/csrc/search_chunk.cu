@@ -53,6 +53,16 @@
 //   * counters = {reads left, steps, the longest lane's iterations, all
 //     lanes' iterations, the FM rows their steps needed}, one atomic each per
 //     lane at its end.
+//
+// Two instantiations of the same body, by row source (fm_row.cuh): the flat
+// table (search_chunk_kernel), and the table split by rows into ranges
+// (search_chunk_sharded_kernel, B8: replaces the masked gather + psum of
+// ibwa_tpu/fm/device.py::_gather_block's sharded branch, :309-319, that
+// ibwa_tpu/parallel/mesh.py::run_sharded_index_search runs).  The sharded
+// one takes its arguments as a __grid_constant__, so the ranges' base
+// pointers are read from the parameter space at each fetch; the launch picks
+// it when the arguments' shard table is in use.  Ranges on other cards are
+// read through peer pointers (fm_row.cuh, peer.cu).
 
 #include <climits>
 #include <cstdint>
@@ -88,11 +98,8 @@ namespace {
 
 using namespace ibwa_step;
 
-template <int WPB, bool PF>
-// (two blocks an SM: 1,024 lanes are 256 blocks on 132 SMs, and a bound of
-// three would cap the step at 168 registers, which spills)
-__global__ void __launch_bounds__(kWarps * 32, 2)
-    search_chunk_kernel(const IbwaChunkArgs a) {
+template <int WPB, bool PF, class Rows>
+__device__ __forceinline__ void search_chunk_body(const IbwaChunkArgs& a) {
   extern __shared__ int32_t arena[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -101,7 +108,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
 
   const IbwaSearchCfg& c = a.c;
   const int64_t n2p = 2 * (int64_t)(c.L + c.SL + 2);
-  const Index ix = load_index(c);
+  const Index<Rows> ix = load_index<Rows>(c);
   LaneRows p;
   arena_rows(arena, warp, c.acap, p);
   LaneState s;
@@ -186,15 +193,37 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
   }
 }
 
+// (two blocks an SM: 1,024 lanes are 256 blocks on 132 SMs, and a bound of
+// three would cap the step at 168 registers, which spills)
+template <int WPB, bool PF>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    search_chunk_kernel(const IbwaChunkArgs a) {
+  search_chunk_body<WPB, PF, FlatRows>(a);
+}
+
+template <int WPB, bool PF>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    search_chunk_sharded_kernel(const __grid_constant__ IbwaChunkArgs a) {
+  search_chunk_body<WPB, PF, ShardRows>(a);
+}
+
 template <int WPB, bool PF>
 int launch(const IbwaChunkArgs& a, cudaStream_t st) {
   const size_t smem = arena_bytes(a.c.acap);
-  const cudaError_t rc = cudaFuncSetAttribute(
-      search_chunk_kernel<WPB, PF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool sharded = a.c.shards.n > 0;
+  const cudaError_t rc =
+      sharded ? cudaFuncSetAttribute(
+                    search_chunk_sharded_kernel<WPB, PF>,
+                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+              : cudaFuncSetAttribute(
+                    search_chunk_kernel<WPB, PF>,
+                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return (int)rc;
   const int grid = (a.B + kWarps - 1) / kWarps;
-  search_chunk_kernel<WPB, PF><<<grid, kWarps * 32, smem, st>>>(a);
+  if (sharded)
+    search_chunk_sharded_kernel<WPB, PF><<<grid, kWarps * 32, smem, st>>>(a);
+  else
+    search_chunk_kernel<WPB, PF><<<grid, kWarps * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -207,7 +236,8 @@ int launch_mode(const IbwaChunkArgs& a, int mode, cudaStream_t st) {
 
 // `mode` picks the step: 1 the one the engine runs; 0 the same without the
 // rows of the next pop asked for ahead, to be timed beside it.  Both compute
-// the same.
+// the same.  A shard table in use (0 < c.shards.n <= kMaxShards, rows a
+// multiple of its range size) picks the sharded instantiation.
 extern "C" int ibwa_search_chunk(const IbwaChunkArgs* args, int mode,
                                  void* stream) {
   const IbwaChunkArgs& a = *args;
@@ -215,7 +245,8 @@ extern "C" int ibwa_search_chunk(const IbwaChunkArgs* args, int mode,
   if (mode < 0 || mode > 1 || a.N <= 0 || a.switch_k <= 0 || a.t_end <= 0 ||
       a.c.acap < 32 ||
       a.c.acap % 32 || arena_bytes(a.c.acap) > 227 * 1024 ||
-      a.c.n_reads != a.N || a.c.L <= 0 || a.c.hcap <= 0)
+      a.c.n_reads != a.N || a.c.L <= 0 || a.c.hcap <= 0 ||
+      !ibwa_fm::shards_ok(a.c.shards, 2 * a.c.n_blk))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (a.c.intv) {

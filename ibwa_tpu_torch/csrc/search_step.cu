@@ -86,7 +86,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
 
   const IbwaSearchCfg& c = a.c;
   const int acap = c.acap, P = c.L + c.SL + 2;
-  const Index ix = load_index(c);
+  const Index<FlatRows> ix = load_index<FlatRows>(c);
   LaneRows p;
   arena_rows(arena, warp, acap, p);
   int32_t* const planes_g[5] = {a.key + row * acap, a.sk + row * acap,
@@ -171,7 +171,8 @@ extern "C" int ibwa_search_steps(const IbwaStepArgs* args, void* stream) {
   const IbwaStepArgs& a = *args;
   if (a.B <= 0 || a.n_steps <= 0) return 0;
   if (a.c.acap <= 0 || a.c.acap % 32 || arena_bytes(a.c.acap) > 227 * 1024 ||
-      a.c.n_reads <= 0 || a.c.L <= 0 || a.c.hcap <= 0)
+      a.c.n_reads <= 0 || a.c.L <= 0 || a.c.hcap <= 0 ||
+      a.c.shards.n != 0)  // the flat table only
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (a.c.intv) {

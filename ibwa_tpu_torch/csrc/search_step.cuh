@@ -65,7 +65,8 @@
 #include "stack_commit.cuh"
 
 // What both entries take beside their own tensors: the index, the reads,
-// shapes, EngineConfig and the engine's constants.  align/engine.py::
+// shapes, EngineConfig and the engine's constants, and the row ranges of a
+// split table (shards.n == 0: the flat table at `blocks`).  align/engine.py::
 // _SearchCfg mirrors this layout field for field.
 struct IbwaSearchCfg {
   const uint32_t* blocks;
@@ -81,6 +82,7 @@ struct IbwaSearchCfg {
   int gape_mode, nonstop, loggap;
   int max_seq, e_unroll;
   int state_m, state_i, state_d, state_e;
+  ibwa_fm::IbwaShards shards;
 };
 
 namespace ibwa_step {
@@ -95,16 +97,19 @@ inline size_t arena_bytes(int acap) {
   return (size_t)kWarps * 5 * acap * sizeof(int32_t);
 }
 
-// The index words every step needs, read once per launch.
+// The index words every step needs, read once per launch, and where the
+// table's rows are (fm_row.cuh: FlatRows or ShardRows).
+template <class Rows>
 struct Index {
-  const uint32_t* blocks;
+  Rows rows;
   uint32_t seq_len, n_blk;
   uint32_t l2[4], l2d[4], prim[2];
 };
 
-__device__ __forceinline__ Index load_index(const IbwaSearchCfg& c) {
-  Index ix;
-  ix.blocks = c.blocks;
+template <class Rows>
+__device__ __forceinline__ Index<Rows> load_index(const IbwaSearchCfg& c) {
+  Index<Rows> ix;
+  ix.rows = Rows::of(c.blocks, c.shards);
   ix.seq_len = (uint32_t)c.seq_len;
   ix.n_blk = (uint32_t)c.n_blk;
 #pragma unroll
@@ -168,9 +173,9 @@ __device__ __forceinline__ int int_log2(int v, int max_value) {
 // One step of a lane that is neither done nor routed to the host; all 32
 // threads of the warp call it together.  It may set s.done or s.fb; the
 // caller steps the lane no further then.
-template <int WPB, bool PF>
+template <int WPB, bool PF, class Rows>
 __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
-                                            const Index& ix,
+                                            const Index<Rows>& ix,
                                             const LaneRows& p, LaneState& s,
                                             NextRows<WPB>& next, int lane) {
   const int P = a.L + a.SL + 2;
@@ -220,9 +225,9 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
     r0 = next.r0;
     r1 = next.r1;
   } else {
-    fetch_occ_row<WPB>(ix.blocks, e_k - 1u, prim, ix.seq_len,
+    fetch_occ_row<WPB>(ix.rows, e_k - 1u, prim, ix.seq_len,
                        ix.n_blk, sidx, r0);
-    fetch_occ_row<WPB>(ix.blocks, e_l, prim, ix.seq_len, ix.n_blk,
+    fetch_occ_row<WPB>(ix.rows, e_l, prim, ix.seq_len, ix.n_blk,
                        sidx, r1);
   }
   next.valid = false;
@@ -381,9 +386,9 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
     const uint32_t cu = (uint32_t)min(bu, 3);
     OccRow<WPB> u0, u1;
     s.rows += 2;
-    fetch_occ_row<WPB>(ix.blocks, ek9 - 1u, prim, ix.seq_len,
+    fetch_occ_row<WPB>(ix.rows, ek9 - 1u, prim, ix.seq_len,
                        ix.n_blk, sidx, u0);
-    fetch_occ_row<WPB>(ix.blocks, el9, prim, ix.seq_len, ix.n_blk,
+    fetch_occ_row<WPB>(ix.rows, el9, prim, ix.seq_len, ix.n_blk,
                        sidx, u1);
     const uint32_t k2u =
         pick4(ix.l2, cu) + occ_count<WPB>(u0, cu, ix.l2d) + 1u;
@@ -481,9 +486,9 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
     next.l = c9 ? ch.l[9] : ch.l[8];
     next.sidx = sidx;
     next.valid = true;
-    fetch_occ_row<WPB>(ix.blocks, next.k - 1u, prim, ix.seq_len,
+    fetch_occ_row<WPB>(ix.rows, next.k - 1u, prim, ix.seq_len,
                        ix.n_blk, sidx, next.r0);
-    fetch_occ_row<WPB>(ix.blocks, next.l, prim, ix.seq_len,
+    fetch_occ_row<WPB>(ix.rows, next.l, prim, ix.seq_len,
                        ix.n_blk, sidx, next.r1);
   }
 

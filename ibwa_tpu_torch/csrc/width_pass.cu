@@ -30,9 +30,17 @@
 // packs its first word after the block's barrier.  A thread stores along its
 // own row, 8 bytes at a time, rows 16 * P bytes apart: uncoalesced, and
 // beside the fetch latency it does not show.
+//
+// Two instantiations of the same body, by row source (fm_row.cuh): the flat
+// table (ibwa_width_pass) and the table split by rows into ranges
+// (ibwa_width_pass_sharded, B8: the occ1 rows of ibwa_tpu/fm/device.py::
+// _gather_block's sharded branch, :309-319, read where they lie; the shard
+// table is a __grid_constant__ argument, its ranges maybe on other cards
+// through peer pointers).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "fm_row.cuh"
 
@@ -50,19 +58,15 @@ __device__ __forceinline__ int64_t pack_meta(uint32_t pw, int pb, uint32_t w,
                    0xFFFFFFFFull);
 }
 
-template <int WPB>
-__global__ void __launch_bounds__(2 * kChains)
-    width_pass_kernel(const uint32_t* __restrict__ blocks,
-                      const int64_t* __restrict__ primary,
-                      const int64_t* __restrict__ L2,
-                      const int64_t* __restrict__ l2diff,
-                      const uint8_t* __restrict__ seqs,
-                      const uint8_t* __restrict__ seed_seqs,
-                      const int64_t* __restrict__ lens,
-                      const bool* __restrict__ has_seed,
-                      int64_t* __restrict__ w, int64_t* __restrict__ bid,
-                      int64_t* __restrict__ meta, int n_reads, int L, int SL,
-                      uint32_t seq_len, uint32_t n_blk) {
+template <int WPB, class Rows>
+__device__ __forceinline__ void width_pass_body(
+    const Rows& src, const int64_t* __restrict__ primary,
+    const int64_t* __restrict__ L2, const int64_t* __restrict__ l2diff,
+    const uint8_t* __restrict__ seqs, const uint8_t* __restrict__ seed_seqs,
+    const int64_t* __restrict__ lens, const bool* __restrict__ has_seed,
+    int64_t* __restrict__ w, int64_t* __restrict__ bid,
+    int64_t* __restrict__ meta, int n_reads, int L, int SL, uint32_t seq_len,
+    uint32_t n_blk) {
   __shared__ int main_end[kChains];  // bid of the main segment's column L
   const int seg = threadIdx.x / kChains;  // 0 main, 1 seed: one warp each
   const int slot = threadIdx.x % kChains;
@@ -102,8 +106,8 @@ __global__ void __launch_bounds__(2 * kChains)
         bool reset = true;  // no base: the interval starts over
         if (c < 4) {
           OccRow<WPB> r0, r1;
-          fetch_occ_row<WPB>(blocks, k - 1u, prim, seq_len, n_blk, strand, r0);
-          fetch_occ_row<WPB>(blocks, l, prim, seq_len, n_blk, strand, r1);
+          fetch_occ_row<WPB>(src, k - 1u, prim, seq_len, n_blk, strand, r0);
+          fetch_occ_row<WPB>(src, l, prim, seq_len, n_blk, strand, r1);
           const uint32_t k2 = pick4(l2, c) + occ_count<WPB>(r0, c, l2d) + 1u;
           const uint32_t l2v = pick4(l2, c) + occ_count<WPB>(r1, c, l2d);
           reset = k2 > l2v;
@@ -142,6 +146,86 @@ __global__ void __launch_bounds__(2 * kChains)
     meta[first] = pack_meta(0u, main_end[slot], first_w, first_b);
 }
 
+#define IBWA_WIDTH_PARAMS                                                   \
+  const int64_t *__restrict__ primary, const int64_t *__restrict__ L2,      \
+      const int64_t *__restrict__ l2diff, const uint8_t *__restrict__ seqs, \
+      const uint8_t *__restrict__ seed_seqs,                                \
+      const int64_t *__restrict__ lens, const bool *__restrict__ has_seed,  \
+      int64_t *__restrict__ w, int64_t *__restrict__ bid,                   \
+      int64_t *__restrict__ meta, int n_reads, int L, int SL,               \
+      uint32_t seq_len, uint32_t n_blk
+#define IBWA_WIDTH_ARGS                                                   \
+  primary, L2, l2diff, seqs, seed_seqs, lens, has_seed, w, bid, meta, \
+      n_reads, L, SL, seq_len, n_blk
+
+template <int WPB>
+__global__ void __launch_bounds__(2 * kChains)
+    width_pass_kernel(const uint32_t* __restrict__ blocks,
+                      IBWA_WIDTH_PARAMS) {
+  width_pass_body<WPB>(FlatRows{blocks}, IBWA_WIDTH_ARGS);
+}
+
+template <int WPB>
+__global__ void __launch_bounds__(2 * kChains)
+    width_pass_sharded_kernel(const __grid_constant__ IbwaShards shards,
+                              IBWA_WIDTH_PARAMS) {
+  width_pass_body<WPB>(ShardRows::of(nullptr, shards), IBWA_WIDTH_ARGS);
+}
+
+template <int WPB>
+void launch_kernel(const uint32_t* blocks, const IbwaShards* shards, int grid,
+                   cudaStream_t st, IBWA_WIDTH_PARAMS) {
+  if (shards)
+    width_pass_sharded_kernel<WPB><<<grid, 2 * kChains, 0, st>>>(
+        *shards, IBWA_WIDTH_ARGS);
+  else
+    width_pass_kernel<WPB><<<grid, 2 * kChains, 0, st>>>(blocks,
+                                                          IBWA_WIDTH_ARGS);
+}
+
+// One launch over the chunk on `stream`, of the flat kernel (shards null)
+// or the sharded one.
+int launch_width_pass(const void* blocks, const IbwaShards* shards,
+                      const void* primary, const void* L2, const void* l2diff,
+                      const void* seqs, const void* seed_seqs,
+                      const void* lens, const void* has_seed, void* w,
+                      void* bid, void* meta, int n_reads, int L, int SL,
+                      int64_t seq_len, int64_t n_blk, int intv,
+                      void* stream) {
+  if (n_reads <= 0) return 0;
+  if (L <= 0 || SL < 0) return (int)cudaErrorInvalidValue;
+  if (shards && (shards->n <= 0 || !shards_ok(*shards, 2 * n_blk)))
+    return (int)cudaErrorInvalidValue;
+  const int grid = (int)((2 * (int64_t)n_reads + kChains - 1) / kChains);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* bl = static_cast<const uint32_t*>(blocks);
+  const auto launch = [&](auto wpb) {
+    launch_kernel<decltype(wpb)::value>(
+        bl, shards, grid, st, static_cast<const int64_t*>(primary),
+        static_cast<const int64_t*>(L2), static_cast<const int64_t*>(l2diff),
+        static_cast<const uint8_t*>(seqs),
+        static_cast<const uint8_t*>(seed_seqs),
+        static_cast<const int64_t*>(lens), static_cast<const bool*>(has_seed),
+        static_cast<int64_t*>(w), static_cast<int64_t*>(bid),
+        static_cast<int64_t*>(meta), n_reads, L, SL, (uint32_t)seq_len,
+        (uint32_t)n_blk);
+  };
+  switch (intv) {
+    case 32:
+      launch(std::integral_constant<int, 2>());
+      break;
+    case 64:
+      launch(std::integral_constant<int, 4>());
+      break;
+    case 128:
+      launch(std::integral_constant<int, 8>());
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ibwa_width_pass(const void* blocks, const void* primary,
@@ -151,37 +235,22 @@ extern "C" int ibwa_width_pass(const void* blocks, const void* primary,
                                void* bid, void* meta, int n_reads, int L,
                                int SL, int64_t seq_len, int64_t n_blk,
                                int intv, void* stream) {
-  if (n_reads <= 0) return 0;
-  if (L <= 0 || SL < 0) return (int)cudaErrorInvalidValue;
-  const int grid = (int)((2 * (int64_t)n_reads + kChains - 1) / kChains);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t* bl = static_cast<const uint32_t*>(blocks);
-  const int64_t* pr = static_cast<const int64_t*>(primary);
-  const int64_t* l2 = static_cast<const int64_t*>(L2);
-  const int64_t* ld = static_cast<const int64_t*>(l2diff);
-  const uint8_t* sq = static_cast<const uint8_t*>(seqs);
-  const uint8_t* ssq = static_cast<const uint8_t*>(seed_seqs);
-  const int64_t* ln = static_cast<const int64_t*>(lens);
-  const bool* hs = static_cast<const bool*>(has_seed);
-  int64_t* wp = static_cast<int64_t*>(w);
-  int64_t* bp = static_cast<int64_t*>(bid);
-  int64_t* mp = static_cast<int64_t*>(meta);
-  const uint32_t sl = (uint32_t)seq_len, nb = (uint32_t)n_blk;
-  switch (intv) {
-    case 32:
-      width_pass_kernel<2><<<grid, 2 * kChains, 0, st>>>(
-          bl, pr, l2, ld, sq, ssq, ln, hs, wp, bp, mp, n_reads, L, SL, sl, nb);
-      break;
-    case 64:
-      width_pass_kernel<4><<<grid, 2 * kChains, 0, st>>>(
-          bl, pr, l2, ld, sq, ssq, ln, hs, wp, bp, mp, n_reads, L, SL, sl, nb);
-      break;
-    case 128:
-      width_pass_kernel<8><<<grid, 2 * kChains, 0, st>>>(
-          bl, pr, l2, ld, sq, ssq, ln, hs, wp, bp, mp, n_reads, L, SL, sl, nb);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_width_pass(blocks, nullptr, primary, L2, l2diff, seqs,
+                           seed_seqs, lens, has_seed, w, bid, meta, n_reads,
+                           L, SL, seq_len, n_blk, intv, stream);
+}
+
+// The same over a table split by rows (B8): `shards` (fm/device.py::Shards)
+// in place of the flat table.
+extern "C" int ibwa_width_pass_sharded(
+    const void* shards, const void* primary, const void* L2,
+    const void* l2diff, const void* seqs, const void* seed_seqs,
+    const void* lens, const void* has_seed, void* w, void* bid, void* meta,
+    int n_reads, int L, int SL, int64_t seq_len, int64_t n_blk, int intv,
+    void* stream) {
+  if (shards == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_width_pass(nullptr, static_cast<const IbwaShards*>(shards),
+                           primary, L2, l2diff, seqs, seed_seqs, lens,
+                           has_seed, w, bid, meta, n_reads, L, SL, seq_len,
+                           n_blk, intv, stream);
 }

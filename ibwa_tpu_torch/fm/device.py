@@ -1,7 +1,7 @@
 """Device-resident FM-index block table + the paired occ queries (K2).
 
-Port of `ibwa_tpu/fm/device.py` (table layout, `_gather_block`,
-`occ4`, `occ1`) without the dimer table and the sharded-index mode.  The
+Port of `ibwa_tpu/fm/device.py` (table layout, `_gather_block` with its
+sharded-index branch, `occ4`, `occ1`) without the dimer table.  The
 block table packs, per `intv`-base block, 4 occ checkpoint words + the
 intv/16 2-bit text words into one row (the reference's interleaved
 layout, bwt.h:56-63), fwd strand rows first, so an occ query is one row
@@ -14,10 +14,19 @@ u32 value (bounds, counts, `L2`) is an int64 tensor (see `u32.py`).
 — the only shape the search asks for.  A CPU tensor goes to the plain
 twin (`occ4_plain` / `occ1_plain`), a CUDA tensor to the kernel in
 `csrc/occ.cu`.
+
+A table split by rows (B8, `shard_pair`): its contiguous row ranges lie on
+the devices of an `idx` group, each its own allocation, and the search
+kernels read a row where it lies (`csrc/fm_row.cuh` ShardRows; on another
+card through a peer pointer, `enable_peer`).  The plain twins read rows
+through `gather_rows_sharded`, a literal port of the JAX masked gather +
+psum.  Only the search's kernels (the width pass and the chunk search) take
+a split table; K2's entries and the SA walker refuse one.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 
@@ -29,19 +38,27 @@ from ..u32 import MASK, NEG1, partial_mask, popcount
 from .fmindex import FmIndex
 
 OCC_INTV = 128
+MAX_SHARDS = 8    # csrc/fm_row.cuh kMaxShards
 
 
 @dataclasses.dataclass
 class DeviceFmPair:
-    """Both strands' FM-indexes as tensors on one device (fwd = strand 0)."""
+    """Both strands' FM-indexes as tensors on one device (fwd = strand 0).
 
-    blocks: torch.Tensor   # int32[2*n_blk, 4 + intv/16], u32 bit patterns
+    A split table (`shard_pair`) has `blocks` None and its row ranges in
+    `shards`, range i holding rows [i * shard_rows, (i + 1) * shard_rows) of
+    the table padded with zero rows; the other tensors are on the device
+    that launches the search."""
+
+    blocks: torch.Tensor | None  # int32[2*n_blk, 4 + intv/16], u32 patterns
     L2: torch.Tensor       # int64[5] (identical for both strands)
     l2diff: torch.Tensor   # int64[4] = L2[1:5] - L2[0:4]
     primary: torch.Tensor  # int64[2]
     seq_len: int
     n_blk: int             # rows per strand
     intv: int              # bases per row: 32, 64 or 128
+    shards: tuple = ()     # int32[shard_rows, 4 + intv/16] each
+    shard_rows: int = 0
 
     @property
     def wpb(self) -> int:
@@ -50,7 +67,8 @@ class DeviceFmPair:
 
     @property
     def device(self) -> torch.device:
-        return self.blocks.device
+        """The table's device; of a split table, the launching one."""
+        return (self.blocks if self.blocks is not None else self.L2).device
 
 
 def _popcount_bases(words: np.ndarray) -> np.ndarray:
@@ -124,7 +142,120 @@ def build_device_pair(fwd: FmIndex, rev: FmIndex, device,
         seq_len=int(fwd.seq_len), n_blk=int(n_blk), intv=int(intv))
 
 
+def pair_to(fm: DeviceFmPair, device) -> DeviceFmPair:
+    """A copy of a flat pair on `device`, sharing no memory with `fm`
+    (the same card named twice holds two tables)."""
+    if fm.shards:
+        raise ValueError("pair_to: the table is split; copy the flat pair")
+    dev = torch.device(device)
+    return dataclasses.replace(
+        fm, **{n: getattr(fm, n).to(dev, copy=True)
+               for n in ("blocks", "L2", "l2diff", "primary")})
+
+
+def enable_peer(device, peer) -> None:
+    """Let kernels on card `device` read allocations of card `peer`
+    (`csrc/peer.cu`).  Raises where torch says the cards cannot reach each
+    other: a split table is never gathered on the host or copied whole."""
+    device, peer = torch.device(device), torch.device(peer)
+    if device == peer:
+        return
+    if device.type != "cuda" or peer.type != "cuda":
+        raise ValueError(f"enable_peer: {device} and {peer} are not cards")
+    if not torch.cuda.can_device_access_peer(device.index, peer.index):
+        raise ValueError(f"enable_peer: {device} cannot read memory of "
+                         f"{peer} (no peer access between the cards)")
+    kernels.check(kernels.lib().ibwa_enable_peer(device.index, peer.index),
+                  "enable_peer")
+
+
+def shard_pair(fm: DeviceFmPair, devices) -> DeviceFmPair:
+    """The pair with its block table split by rows over `devices` (B8):
+    the rows padded with zero rows, which no query addresses, to a multiple
+    of n = len(devices), and range i, rows [i * r, (i + 1) * r) with r =
+    rows / n, copied onto devices[i] as an allocation of its own.  L2,
+    l2diff and primary go to devices[0], which launches the search; on
+    cards, devices[0] is given peer access to every other card of the list
+    (`enable_peer`, which raises where it cannot be had)."""
+    if fm.shards:
+        raise ValueError("shard_pair: the table is split already")
+    devs = [torch.device(d) for d in devices]
+    n = len(devs)
+    if not 1 <= n <= MAX_SHARDS:
+        raise ValueError(f"shard_pair: 1 to {MAX_SHARDS} devices, got {n}")
+    if len({d.type for d in devs}) != 1:
+        raise ValueError(f"shard_pair: devices of one kind, got {devs}")
+    table = fm.blocks
+    rows = -(-table.shape[0] // n)
+    pad = rows * n - table.shape[0]
+    if pad:
+        table = torch.cat([table, table.new_zeros((pad, table.shape[1]))])
+    lead = devs[0]
+    if lead.type == "cuda":
+        for d in devs[1:]:
+            enable_peer(lead, d)
+    return dataclasses.replace(
+        fm, blocks=None,
+        shards=tuple(table[i * rows:(i + 1) * rows].to(d, copy=True)
+                     for i, d in enumerate(devs)),
+        shard_rows=rows,
+        **{name: getattr(fm, name).to(lead, copy=True)
+           for name in ("L2", "l2diff", "primary")})
+
+
+class Shards(ctypes.Structure):
+    """The row ranges of a split table as the search kernels take them,
+    field for field the struct IbwaShards of csrc/fm_row.cuh (n = 0: the
+    flat table)."""
+
+    _fields_ = [("base", ctypes.c_void_p * MAX_SHARDS),
+                ("rows", ctypes.c_int64), ("n", ctypes.c_int)]
+
+
+def cuda_table(fm: DeviceFmPair) -> tuple[int, Shards]:
+    """What a search kernel takes for the table: (the flat table's
+    address, an empty `Shards`), or (0, the ranges' addresses and size).
+    Raises unless every range is a contiguous, aligned int32[shard_rows,
+    4 + intv/16] tensor (the wrappers take only CUDA tensors here; the CPU
+    stand-in of the tests calls them with CPU ones)."""
+    if not fm.shards:
+        _check_cuda_table(fm)
+        return fm.blocks.data_ptr(), Shards()
+    if fm.shard_rows * len(fm.shards) < 2 * fm.n_blk:
+        raise ValueError("the table's ranges do not cover its rows")
+    for b in fm.shards:
+        if (b.dtype != torch.int32 or not b.is_contiguous()
+                or b.shape != (fm.shard_rows, 4 + fm.wpb)
+                or b.data_ptr() % 16):
+            raise ValueError("each range of a split table must be a "
+                             "contiguous, aligned int32[shard_rows, 4 + "
+                             "intv/16] tensor")
+    sh = Shards(rows=fm.shard_rows, n=len(fm.shards))
+    for i, b in enumerate(fm.shards):
+        sh.base[i] = b.data_ptr()
+    return 0, sh
+
+
 # ---- plain twins (ports of ibwa_tpu/fm/device.py:286-364, :430-461) ----
+
+def gather_rows_sharded(fm: DeviceFmPair, flat: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain version of B8 (ibwa_tpu/fm/device.py:309-319): the rows
+    `flat` (int64[...]) of a split table, as int64 u32 values [..., 4 +
+    wpb].  Each range fetches the rows it owns, zeros elsewhere, and the
+    rows are summed over the ranges."""
+    out = None
+    for i, shard in enumerate(fm.shards):
+        n_local = shard.shape[0]
+        loc = (flat - i * n_local) & MASK  # u32 wrap puts rows below high
+        owned = loc < n_local
+        safe = torch.clamp(loc, max=n_local - 1).to(shard.device)
+        rows = torch.where(owned[..., None],
+                           shard[safe].to(flat.device, torch.int64) & MASK,
+                           0)
+        out = rows if out is None else out + rows
+    return out
+
 
 def _gather_block(fm: DeviceFmPair, strand: torch.Tensor, kk: torch.Tensor):
     """Row gather for sentinel-adjusted, clamped queries: returns
@@ -132,7 +263,11 @@ def _gather_block(fm: DeviceFmPair, strand: torch.Tensor, kk: torch.Tensor):
     shift = fm.intv.bit_length() - 1
     blk = torch.clamp(kk >> shift, max=fm.n_blk - 1)
     off = kk & (fm.intv - 1)
-    row = fm.blocks[strand * fm.n_blk + blk].to(torch.int64) & MASK
+    flat = strand * fm.n_blk + blk
+    if fm.shards:
+        row = gather_rows_sharded(fm, flat)
+    else:
+        row = fm.blocks[flat].to(torch.int64) & MASK
     return row[..., :4], row[..., 4:], off >> 4, (off & 15) + 1
 
 
@@ -249,6 +384,9 @@ def occ1_pair(fm: DeviceFmPair, strand: torch.Tensor, k: torch.Tensor,
 
 
 def _check_cuda_table(fm: DeviceFmPair) -> None:
+    if fm.shards:
+        raise ValueError("the table is split over devices: only the search's "
+                         "kernels (width pass, chunk search) read it")
     b = fm.blocks
     if (b.dtype != torch.int32 or not b.is_contiguous()
             or b.shape != (2 * fm.n_blk, 4 + fm.wpb)

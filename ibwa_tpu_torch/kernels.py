@@ -67,6 +67,11 @@ _SIGNATURES = {
     # blocks, primary, L2, l2diff, seqs, seed_seqs, lens, has_seed, w, bid,
     # meta, n_reads, L, SL, seq_len, n_blk, intv, stream
     "ibwa_width_pass": [_P] * 11 + [_I, _I, _I, _L, _L, _I, _P],
+    # ... the same with the shard table (fm/device.py::Shards) in place of
+    # blocks (B8)
+    "ibwa_width_pass_sharded": [_P] * 11 + [_I, _I, _I, _L, _L, _I, _P],
+    # device, peer
+    "ibwa_enable_peer": [_I, _I],
     # the argument struct (align/engine.py::_SwitchArgs), stream
     "ibwa_lane_switch": [_P, _P],
     # the argument struct (align/engine.py::_ChunkArgs), prefetch, stream

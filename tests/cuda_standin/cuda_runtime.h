@@ -43,6 +43,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __grid_constant__
 
 struct uint2 {
   unsigned x, y;

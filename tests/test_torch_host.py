@@ -39,6 +39,8 @@ from ibwa_tpu_torch.io import reads as treads
 from ibwa_tpu_torch.io import sai as tsai
 
 from conftest import REPO, make_genome, simulate_reads
+from test_torch_tools import (TOOL_COMMANDS, check_command,  # noqa: F401
+                              tool_src, write_stdsw_inputs)
 
 EXTS = ("pac", "rpac", "ann", "amb", "bwt", "rbwt", "sa", "rsa")
 
@@ -220,10 +222,14 @@ def test_native_library_builds_outside_the_package():
         "libibwa_native_*.so"))
 
 
-@pytest.mark.parametrize("cmd", tcli.NOT_PORTED)
-def test_unported_commands_return_2(cmd, capsys):
-    assert tcli.main([cmd, "x", "y"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+@pytest.mark.parametrize("cmd", TOOL_COMMANDS)
+def test_unported_commands_return_2(cmd, tool_src, tmp_path):
+    """The eleven commands that were not ported before the tools' slice:
+    each now runs, and `python -m ibwa_tpu_torch <cmd>` (jax and ibwa_tpu
+    blocked) writes what `python -m ibwa_tpu <cmd>` writes on the same
+    inputs, stdout and files byte-equal."""
+    assert cmd in tcli.COMMANDS
+    check_command(cmd, tool_src, tmp_path)
 
 
 def test_load_read_batch_fields_equal(host_inputs):
@@ -243,7 +249,8 @@ def test_load_read_batch_fields_equal(host_inputs):
 
 
 def test_cli_never_imports_the_jax_package(host_inputs, tmp_path):
-    """`stdsw` answers "not ported yet", and `index`, `aln`, `samse`,
+    """A tool (`stdsw`, its alignment text equal to ibwa_tpu's), and
+    `index`, `aln`, `samse`,
     `sampe -R --device cpu` (K5's plain version prefilling the SA walks)
     and `sampe -R --engine native` (no prefill, whatever IBWA_PE_DEVICE
     says) run, in a process where `ibwa_tpu`, `jax` and `bench` cannot be
@@ -262,6 +269,7 @@ def test_cli_never_imports_the_jax_package(host_inputs, tmp_path):
                               seed=12, paired=True)
     sai, sai1, sai2, se, pe, pe_host = (tmp_path / n for n in (
         "r.sai", "1.sai", "2.sai", "se.sam", "pe.sam", "pe_host.sam"))
+    write_stdsw_inputs(tmp_path, random.Random(3))
     p = str(prefix)
     code = (
         "import sys\n"
@@ -271,7 +279,9 @@ def test_cli_never_imports_the_jax_package(host_inputs, tmp_path):
         "import ibwa_tpu_torch.sam.dbset, ibwa_tpu_torch.sam.pe_native\n"
         "import ibwa_tpu_torch.sam.remap, ibwa_tpu_torch.sam.sampe\n"
         "from ibwa_tpu_torch import cli\n"
-        "rc = cli.main(['stdsw', 'a', 'b'])\n"
+        f"rc = cli.main(['stdsw', {str(tmp_path / 'target.fa')!r}, "
+        f"{str(tmp_path / 'query.fa')!r}])\n"
+        "sys.stdout.flush()\n"
         f"rc2 = cli.main(['index', '-p', {p!r}, {str(fa)!r}])\n"
         f"rc2 += cli.main(['aln', '--engine', 'native', {p!r}, {str(fq)!r},"
         f" '-f', {str(sai)!r}])\n"
@@ -298,8 +308,13 @@ def test_cli_never_imports_the_jax_package(host_inputs, tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO), IBWA_PE_DEVICE="1")
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=300)
-    assert r.returncode == 20, r.stderr[-3000:]
-    assert "not ported yet" in r.stderr
+    assert r.returncode == 0, r.stderr[-3000:]
+    from ibwa_tpu.tools.stdsw import stdsw
+    want_sw = io.StringIO()
+    stdsw(str(tmp_path / "target.fa"), str(tmp_path / "query.fa"),
+          out=want_sw)
+    # stdsw's alignment text is all that the run writes to stdout
+    assert r.stdout == want_sw.getvalue() != ""
     assert re.search(r"\[sai2sam_pe\] prefill [1-9]\d* rows", r.stderr)
     for ext in EXTS:
         assert open(f"{prefix}.{ext}", "rb").read() == \
