@@ -113,6 +113,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         instantiations, whose launches B8's rows count); with several
         cards the same over cuda:0,cuda:1 (peer reads), else a line saying
         it was not run
+     g. the scale configurations (`ibwa_tpu_torch/parity_scale.py`, full
+        scale, through the port's CLI; run after e, with the launches of
+        its commands counted on a line of their own): ecoli_seam (aln
+        device-only, hybrid and native on 0x40000 + 16,384 pairs, two
+        batches an end, .sai byte-equal, the hybrid's host share a batch;
+        sampe -R with K5's walks and the host walks over two batches, SAM
+        byte-equal, 0 host walks and 0 refused values a batch; samse on
+        mate 1 over two batches, a record a read in read order),
+        repeat_pe (a 32 Mbp repeat-rich genome: aln .sai byte-equal,
+        sampe -R SAM byte-equal on SA intervals thousands of rows wide,
+        K5 in waves of 1,048,576 rows bitwise equal to the run's one
+        wave), iterative_remap (a 63 Mbp primary and an alternate
+        reference of haplotypes with .remap CIGARs: four .sai byte-equal,
+        the alternate's at ACAP 1024; sampe -R over the two dbs SAM
+        byte-equal with ZR tags, a walker a db in DbSet order, lf_walk
+        once a db, batch and wave; the two routes' rates, three rounds in
+        turns) and aln_options (five option sets and mixed read lengths,
+        .sai byte-equal, the gappy and nonstop sets at ACAP 1024); then K5
+        on repeat_pe's recorded intervals against its plain version and
+        the run's values, bitwise, timed beside its bounds, and the width
+        pass and the chunk search timed on the CLI path (a profiler
+        session around `aln`) at ACAP 1024 (the gappy set) and 256 (the
+        default) on the same reads
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
@@ -140,6 +163,7 @@ measured.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -1151,17 +1175,12 @@ def make_inputs() -> tuple[pathlib.Path, pathlib.Path]:
 
 def run_cli(cmd: str, args: list[str], out: pathlib.Path
             ) -> tuple[float, str]:
-    """`ibwa_tpu_torch <cmd> ... -f out` in-process, as a user calls it:
-    (wall seconds of the whole command, its stderr)."""
-    from ibwa_tpu_torch import cli
-    err = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        rc = cli.main([cmd, *args, "-f", str(out)])
-    wall = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"{cmd} {args} exited {rc}:\n{err.getvalue()}")
-    return wall, err.getvalue()
+    """`ibwa_tpu_torch <cmd> ... -f out` in-process, as a user calls it
+    (`parity_scale.run_cli`): (wall seconds of the whole command, its
+    stderr)."""
+    from ibwa_tpu_torch import parity_scale
+    r = parity_scale.run_cli(cmd, args, out)
+    return r["wall"], r["err"]
 
 
 def run_aln(args: list[str], out: pathlib.Path) -> dict:
@@ -1514,11 +1533,6 @@ LAST_LINE = re.compile(r"\[sai2sam_pe\] (\d+) host walks after the last "
                        r"prefill")
 
 
-def first_reads(fq: pathlib.Path, n: int, out: pathlib.Path) -> None:
-    with open(fq, "rb") as f:
-        out.write_bytes(b"".join(itertools.islice(f, 4 * n)))
-
-
 def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
     """`aln --device cuda` on both ends of the pairs; `sampe -R` on all
     of them with the SA walks on the card (K5 prefilling each batch) and
@@ -1533,7 +1547,7 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
     kernel table from this path."""
     import numpy as np
     import torch
-    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch import kernels, parity_scale
     from ibwa_tpu_torch.fm import walk
     from ibwa_tpu_torch.sam import sampe
     sais = [WORK / f"pairs_{e}.sai" for e in (1, 2)]
@@ -1552,18 +1566,10 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
 
     # all the pairs: the SAM, K5's launches and time, and its intervals
     native_s, _, _ = sampe_run(routes["native"] + args, sam["native"], False)
-    calls, resolve = [], walk.DeviceWalker.resolve_intervals
-
-    def recorded(self, strand, ks, ls, **kw):
-        calls.append((self, np.array(strand), np.array(ks), np.array(ls)))
-        return resolve(self, strand, ks, ls, **kw)
-
-    walk.DeviceWalker.resolve_intervals = recorded
-    try:
+    with parity_scale.WalkRecorder(keep_values=False) as rec:
         device_s, prefill, launches = sampe_run(
             routes["device"] + args, sam["device"], True)
-    finally:
-        walk.DeviceWalker.resolve_intervals = resolve
+    calls = rec.calls
     want = sam["native"].read_bytes()
     if sam["device"].read_bytes() != want:
         raise AssertionError("sampe SAM with K5's walks differs from the "
@@ -1575,8 +1581,8 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
     if len(calls) != 1:
         raise AssertionError(f"one db and one batch, so one call: "
                              f"{len(calls)}")
-    walker, strand, ks, ls = calls[0]
-    del calls
+    walker, strand, ks, ls, _, _ = calls[0]
+    del calls, rec
     case = walk_case(walker, strand, ks, ls)
     mask = walker.sa_intv - 1
     got, stats = walk.lf_resolve(walker.fm, walker.sampled, case["iv"],
@@ -1630,7 +1636,7 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
     sub_fq = [WORK / f"rate_pairs_{e}.fq" for e in (1, 2)]
     sub_sai = [WORK / f"rate_pairs_{e}.sai" for e in (1, 2)]
     for fq, sfq, sai_ in zip(fqs, sub_fq, sub_sai):
-        first_reads(fq, RATE_PAIRS, sfq)
+        parity_scale.first_reads(fq, RATE_PAIRS, sfq)
         run_aln([str(fa), str(sfq), "--device", "cuda"], sai_)
     args = [str(fa), *map(str, sub_sai), *map(str, sub_fq)]
     walls = {name: [] for name in routes}
@@ -2395,6 +2401,113 @@ def check_sharded(fm, chunk: dict, dev, rows: dict, ptxas: dict) -> dict:
     return out
 
 
+def run_scale_phase(warp_us: float, rows: dict) -> dict:
+    """Phase 4g: every configuration of `ibwa_tpu_torch/parity_scale.py`
+    at full scale on the card (it raises on the first inequality), then
+    K5 on repeat_pe's recorded intervals (bitwise against its plain
+    version and the run's values, CUDA events, bounds by `walk_footprint`)
+    and the width pass and the chunk search on the CLI path at ACAP 1024
+    and 256 (device ms a launch from a profiler session around one
+    device-only `aln` of aln_options' reads, .sai byte-equal to native).
+    Adds those readings to the kernel table's rows; returns the launches
+    of the configurations' commands."""
+    import numpy as np
+    import torch
+    from ibwa_tpu_torch import parity_scale
+    from ibwa_tpu_torch.fm import walk
+    say = lambda msg: log(f"4g {msg}")
+    work = REPO / ".bench" / "parity_scale_torch"
+    res = {r["config"]: r for r in parity_scale.run(
+        device="cuda", scale="full", work=work, report=say, say=say)}
+    launches = collections.Counter()
+    for r in res.values():
+        launches.update(r["launches"])
+    full = parity_scale.SCALES["full"]
+    ecoli = res["ecoli_seam"]
+    if (len(ecoli["sampe"]["batches"]), ecoli["samse"]["batches"],
+            ecoli["samse"]["records"]) != (2, 2, full.ecoli_pairs) or any(
+            st["n_batches"] != 2 for end in ecoli["aln"]
+            for st in end.values()):
+        raise AssertionError("ecoli_seam did not cross the batch seam")
+    for name in ("width_pass", "search_chunk", "lf_walk"):
+        if launches[name] <= 0:
+            raise AssertionError(f"4g never launched {name}: {launches}")
+    secs = {name: round(r["seconds"], 1) for name, r in res.items()}
+    say(f"every configuration equal; seconds {secs}")
+
+    # K5 on repeat_pe's intervals, thousands of rows wide
+    calls = res["repeat_pe"]["sampe"].pop("_calls")
+    walker, strand, ks, ls, vals, last = calls[0]
+    case = walk_case(walker, strand, ks, ls)
+    mask = walker.sa_intv - 1
+    args = (walker.fm, walker.sampled, case["iv"], case["off"], 0,
+            case["n"], mask)
+    got, stats = walk.lf_resolve(*args)
+    err = max_abs_err([got], [walk.resolve_intervals_plain(*args)[0]])
+    if err or not np.array_equal(got.cpu().numpy().view(np.uint32), vals):
+        raise AssertionError(f"K5 on repeat_pe's rows: kernel != plain or "
+                             f"the run's values (max abs err {err})")
+    stream = torch.cuda.current_stream().cuda_stream
+    readings = [event_ms(lambda: walk._launch_resolve(*args, stream), 5)
+                for _ in range(3)]
+    plain_ms = event_ms(lambda: walk.resolve_intervals_plain(*args), 1)
+    fp = walk_footprint(walker.fm, case["strand"], case["k"], mask)
+    _, steps, longest = stats.tolist()
+    if (steps, longest) != (fp["steps"], fp["longest"]):
+        raise AssertionError(f"K5's counters {stats.tolist()} against "
+                             f"walk_footprint {fp}")
+    n_iv = case["iv"].shape[1]
+    bd = walk_bound(n_iv, case["n"], fp, walker.fm.wpb, warp_us)
+    wave = res["repeat_pe"]["wave_check"][0]
+    rows["lf_walk"]["repeat_pe"] = {
+        "rows": case["n"], "intervals": n_iv, "run_waves": last["waves"],
+        "check_waves": wave["waves"], "ms": statistics.median(readings),
+        "ms_readings": readings, "plain_ms": plain_ms, "max_abs_err": err,
+        **bd, "steps": fp["steps"], "longest_walk": fp["longest"],
+        "rows_fetched": fp["rows"], "sampled_words": fp["slots"]}
+    say(f"K5 on repeat_pe's {case['n']} rows of {n_iv} intervals (the "
+        f"run: {last['waves']} wave; the check: {wave['waves']} waves of "
+        f"{full.wave_rows} rows, bitwise equal): bitwise equal to the plain "
+        f"version and the run's values; {fp['steps']} LF steps over "
+        f"{fp['rows']} distinct table rows and {fp['slots']} sampled words, "
+        f"longest walk {fp['longest']}; device ms {readings} (CUDA events, 5 "
+        f"launches each), plain {plain_ms:.3f}; bounds "
+        f"{bd['bytes_bound_ms']:.5f} by bytes, {bd['ops_bound_ms']:.5f} by "
+        f"operations, {bd['latency_bound_ms']:.5f} by latency "
+        f"({fp['longest']} x {warp_us:.3f} us)")
+    del calls, walker, case, got, args
+    torch.cuda.empty_cache()
+
+    # the width pass and the chunk search on the CLI path, ACAP 1024 / 256
+    paths = res["aln_options"]["_paths"]
+    for name in ("gappy", "default"):
+        out, st = WORK / f"scale_{name}.sai", {}
+        us = traced(lambda: st.update(parity_scale.aln(
+            paths["fa"], paths["fq"], out, "device_only", "cuda",
+            parity_scale.OPTION_SETS[name])), 1)
+        parity_scale.same_bytes(f"aln {name}", out, work / "full" /
+                                "aln_options" / f"{name}.native.sai")
+        reading = {"acap": sorted({b["acap"] for b in st["batches"]}),
+                   "launches": st["launches"]["search_chunk"],
+                   "fallback_share": st["fallback_reads"] / st["reads"],
+                   "search_s": st["search_s"]}
+        per = {}
+        for kernel, key in (("search_chunk", "search_chunk_kernel"),
+                            ("width_pass", "width_pass_kernel")):
+            seen = sum(n for k, (_, n) in us.items() if key in k)
+            per[kernel] = kernel_ms(us, key) / seen if seen else None
+            rows[kernel][f"cli_{name}"] = {**reading, "launches_seen": seen,
+                                           "ms_a_launch": per[kernel]}
+        say(f"aln {name} ({' '.join(parity_scale.OPTION_SETS[name])}) on "
+            f"{st['reads']} reads of the 63 Mbp primary, device-only, the "
+            f"profiler on: .sai byte-equal to native; ACAP "
+            f"{reading['acap']}, {reading['launches']} chunks, fallback "
+            f"share {reading['fallback_share']:.4f}, search_s "
+            f"{st['search_s']:.3f}; device ms a launch (None: the profiler "
+            f"saw none) {per}")
+    return dict(launches)
+
+
 def run_mesh_aln(fa, fq) -> dict:
     """`aln` device-only over one entry (`--device cuda:0`), two entries on
     the one card (`--device cuda:0,cuda:0`: reads split, a table each, a
@@ -2684,7 +2797,13 @@ def main() -> int:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} never launched on its "
                                  f"path ({launches})")
-    log(f"launches on the paths: {launches}; all phases "
+    log(f"launches on the paths: {launches}; phases 1-4f "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    # ---- 4g. the scale configurations, counted on a line of their own
+    scale_launches = run_scale_phase(warp_us["b"], rows)
+    log(f"launches of 4g (the scale configurations' commands): "
+        f"{scale_launches}; all phases "
         f"{time.perf_counter() - t_start:.0f} s")
 
     # ---- 5. result lines

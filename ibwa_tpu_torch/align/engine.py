@@ -90,6 +90,8 @@ SWITCH_K = 16     # search steps between lane-switch phases
 HOST_FRAC_INIT = 0.30  # starting host share of a batch (hybrid); adapts
                        # per batch; IBWA_HOST_FRAC fixes it
 HOST_CHUNK = 2048      # reads per native job
+HYBRID_MIN = 2048      # a batch of at most this many reads has no host
+                       # share (engine_jax.py's threshold)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1363,8 +1365,10 @@ class TorchAlnEngine:
                      for g in groups]
         self.dfm, self.device = self.dfms[0], self.dfms[0].device
         self.streams = entry_streams(self.dfms)
+        # `batches`: one record a batch (its reads, host share, overflow
+        # fallback and arena size), in the order the batches came
         self.stats = {"device_reads": 0, "fallback_reads": 0,
-                      "host_reads": 0, "iterations": 0}
+                      "host_reads": 0, "iterations": 0, "batches": []}
         self.host_frac = float(os.environ.get("IBWA_HOST_FRAC",
                                               HOST_FRAC_INIT))
         # an explicit env share is FIXED (no adaptation)
@@ -1392,7 +1396,8 @@ class TorchAlnEngine:
         if self.host_frac >= 0.999:
             n_host = n_reads
         else:
-            n_host = int(n_reads * self.host_frac) if n_reads > 2048 else 0
+            n_host = (int(n_reads * self.host_frac) if n_reads > HYBRID_MIN
+                      else 0)
         host_lo = n_reads - n_host
         host_busy = [0.0]
         t_start = time.perf_counter()
@@ -1488,6 +1493,9 @@ class TorchAlnEngine:
             f_star = min(max(want / n_reads, 0.02), 0.85)
             self.host_frac = 0.5 * self.host_frac + 0.5 * f_star
         self.stats["host_frac"] = round(self.host_frac, 3)
+        self.stats["batches"].append({
+            "reads": n_reads, "host_reads": n_host, "fallback_reads": n_fb,
+            "host_share": n_host / n_reads, "acap": cfg.acap})
         return out  # type: ignore[return-value]
 
 

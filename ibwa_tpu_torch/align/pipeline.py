@@ -55,8 +55,10 @@ def aln_to_stream(prefix: str, fq_path: str, opt: GapOpt, out: BinaryIO,
                   engine: str = "torch", device: str = "cuda",
                   n_idx: int = 1) -> int:
     """Align every read of `fq_path` against the index at `prefix` and
-    write the .sai stream to `out`; returns the read count.  Ends with an
-    `[aln] stats {json}` line on stderr."""
+    write the .sai stream to `out`; returns the read count.  The torch
+    engine prints a line a batch (its host share, overflow fallback and
+    arena size); the run ends with an `[aln] stats {json}` line on
+    stderr."""
     if engine not in ("torch", "native", "ref"):
         raise ValueError(f"unknown engine {engine!r}")
     fms = (FmIndex(load_index(prefix, 0)), FmIndex(load_index(prefix, 1)))
@@ -84,6 +86,13 @@ def aln_to_stream(prefix: str, fq_path: str, opt: GapOpt, out: BinaryIO,
                 sai.write_read_hits(out, hits)
             total += len(batch)
             print(f"[aln] {total} sequences processed", file=sys.stderr)
+            if eng is not None:
+                b = eng.stats["batches"][-1]
+                print(f"[aln] batch {len(eng.stats['batches'])}: "
+                      f"{b['reads']} reads, host share "
+                      f"{b['host_share']:.4f} ({b['host_reads']} reads), "
+                      f"overflow fallback {b['fallback_reads']}, ACAP "
+                      f"{b['acap']}", file=sys.stderr)
     finally:
         if eng is not None:
             eng.close()
