@@ -3,6 +3,7 @@ checks each against its plain PyTorch version, and drives every path of
 the port end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --large-table GBP   # phase 4h alone, at GBP Gbp
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: a CUDA card is required (there is no CPU path)
@@ -136,6 +137,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         pass and the chunk search timed on the CLI path (a profiler
         session around `aln`) at ACAP 1024 (the gappy set) and 256 (the
         default) on the same reads
+     h. a large table (`ibwa_tpu_torch/index_3gbp.py` at 0.25 Gbp, run
+        after g, with the launches of its commands counted on a line of
+        their own): scripts/index_3gbp.py's 32-contig genome generated and
+        indexed by the port in a child process (wall, peak RSS, artifact
+        bytes); 16,384 pairs: aln device-only, hybrid and native on both
+        ends (.sai byte-equal, one width pass and one chunk search a
+        chunk, ACAP 256, the fallback share), the rates of end 1 in three
+        rounds in turns, sampe -R with K5's walks against the host walks
+        (SAM byte-equal, 0 host walks and 0 refused values, records on
+        several contigs and above 2^26 in the packed text), the table's
+        bytes and seconds and the card's peak memory of each command;
+        then K5 on sampe's recorded intervals (`k5_on_run`), and K6 and
+        K8 on the first 2,048 reads of end 1 over the 250 MB table bitwise
+        against their plain versions and timed in turns with the smoke's
+        32 Mbp chunk, beside their bounds (latency at table (c)'s step)
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
@@ -167,6 +183,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -216,6 +233,8 @@ EXT_READS = ("new", "first", "first", "new", "new", "first")   # in turns
 EXT_GRIDS = (1, 2, 3, 4, 6)     # blocks an SM K9's grid is timed at
 MESH_IDX = (2, 4)               # row ranges the smoke splits the table in
 MESH_TURNS = ("flat", 2, 4, 4, 2, "flat")   # B8's timing order
+LARGE_GBP = 0.25                # 4h's genome: a 250 MB block table
+LARGE_TURNS = ("large", "smoke", "smoke", "large", "large", "smoke")
 REPO = pathlib.Path(__file__).resolve().parent
 WORK = REPO / ".bench" / "smoke"
 
@@ -567,19 +586,9 @@ def check_width_pass(fm, chunk: dict) -> dict:
                              f"err {err})")
     ms, call_ms = timed_ms(run, 20)
     plain_ms, plain_call_ms = timed_ms(plain, 2)
-    # must move: the three planes out, the bases, lengths and flags in, and
-    # two table rows per base that is one (an N or a position beyond the
-    # read fetches nothing); ~6 integer ops per word of a row and ~40 more
-    # per base
-    pos = torch.arange(cfg.L, device=lens.device)
-    main = (seqs < 4) & (pos[None, None, :] < lens[:, None, None])
-    seed = (seed_seqs < 4) & has_seed[:, None, None]
-    fetches = int(main.sum()) + int(seed.sum())
-    longest = int(main.sum(dim=2).max())
-    moved = (nbytes(*got) + nbytes(seqs, seed_seqs, lens, has_seed)
-             + fetches * 2 * 4 * (4 + fm.wpb))
+    moved, ops, fetches, longest = width_work(cfg, fm, got, chunk["args"])
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound(moved, fetches * (2 * fm.wpb * 6 + 40)),
+           **bound(moved, ops),
            "library_ms": None, "_longest": longest}
     log(f"K6 width_pass N={lens.shape[0]} L={cfg.L} SL={cfg.SL} "
         f"intv={fm.intv}: w / bid / meta bitwise equal; {fetches} bases "
@@ -712,6 +721,69 @@ def time_search_chunk(cfg, fm, args, reps: int, mode: int,
     return ms
 
 
+def hold_search_chunk(fm, name, cfg, args, n_lanes, want) -> str:
+    """K8 on the chunk `args` against `want`, a plain or phased loop's
+    (hits, n_hits, fb, steps), with and without the step's rows asked
+    ahead: hit counts, fallback flags, the step count and the hits below
+    each count, bitwise.  A line that names the case."""
+    import torch
+    from ibwa_tpu_torch.align import engine
+    lens = args[1]
+    for mode in (1, 0):
+        out_h, nh, fb, counters = launch_chunk(cfg, fm, args, n_lanes, mode)
+        left, steps = counters.tolist()[:2]
+        got = (engine.masked_hits(out_h.permute(1, 2, 0), nh, fb), nh,
+               fb.to(torch.int64))
+        ref = (engine.masked_hits(*want[:3]), want[1],
+               want[2].to(torch.int64))
+        err = max_abs_err(got, ref)
+        if err or left != 0 or steps != want[3]:
+            bad_in = [n for n, g, w in zip(("hits", "n_hits", "fb"), got,
+                                           ref) if max_abs_err([g], [w])]
+            raise AssertionError(
+                f"search_chunk case {name} mode={mode}: kernel != its "
+                f"plain version in {bad_in} (max abs err {err}); steps "
+                f"{steps} vs {want[3]}, reads left {left}")
+    return (f"{name} ({lens.shape[0]} reads, {n_lanes} lanes, steps "
+            f"{want[3]}, fallback {int(want[2].sum())})")
+
+
+def chunk_work(cfg, fm, want, total: int, rows: int) -> tuple[int, int]:
+    """The bytes and the operations a chunk search must take, from this
+    run's counters: the FM rows the steps needed (the occ4 bounds' and the
+    E-chain's); per lane iteration a read base and two meta words; per
+    recorded hit its three words and one strand's w / bid / meta row in
+    and out; per read its four scalars in and two out.  The arena never
+    leaves the SM.  The operations are an estimate: per row its counts of
+    four bases, per iteration the pass over the key row and some 400
+    integer operations of the step's own, which nothing in the run
+    counts; the bytes' time is above theirs either way."""
+    P = cfg.L + cfg.SL + 2
+    n = want[1].shape[0]
+    hits = int(want[1][~want[2]].sum())
+    moved = (rows * 4 * (4 + fm.wpb) + total * (1 + 2 * 8)
+             + hits * (3 * 8 + 2 * 3 * P * 8) + n * (18 + 9))
+    return moved, rows * fm.wpb * 4 * 6 + total * (400 + 4 * cfg.acap)
+
+
+def width_work(cfg, fm, got, args) -> tuple[int, int, int, int]:
+    """What the width pass must take on a chunk: (bytes, operations, bases
+    fetched, the longest chain).  The three planes out, the bases, lengths
+    and flags in, and two table rows per base that is one (an N or a
+    position beyond the read fetches nothing); ~6 integer ops per word of
+    a row and ~40 more per base."""
+    import torch
+    seqs, lens, _, has_seed, seed_seqs, _ = args
+    pos = torch.arange(cfg.L, device=lens.device)
+    main = (seqs < 4) & (pos[None, None, :] < lens[:, None, None])
+    seed = (seed_seqs < 4) & has_seed[:, None, None]
+    fetches = int(main.sum()) + int(seed.sum())
+    moved = (nbytes(*got) + nbytes(seqs, seed_seqs, lens, has_seed)
+             + fetches * 2 * 4 * (4 + fm.wpb))
+    return (moved, fetches * (2 * fm.wpb * 6 + 40), fetches,
+            int(main.sum(dim=2).max()))
+
+
 def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
     """K8 against its plain version, the phased loop, on the card.  Against
     the plain loop (`engine.run_search_plain`, which shares no device code
@@ -726,28 +798,7 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
     from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.align import engine
     cfg0, args0 = chunk["cfg"], chunk["args"]
-
-    def hold(name, cfg, args, n_lanes, want):
-        lens = args[1]
-        for mode in (1, 0):
-            out_h, nh, fb, counters = launch_chunk(cfg, fm, args, n_lanes,
-                                                   mode)
-            left, steps = counters.tolist()[:2]
-            got = (engine.masked_hits(out_h.permute(1, 2, 0), nh, fb), nh,
-                   fb.to(torch.int64))
-            ref = (engine.masked_hits(*want[:3]), want[1],
-                   want[2].to(torch.int64))
-            err = max_abs_err(got, ref)
-            if err or left != 0 or steps != want[3]:
-                bad_in = [n for n, g, w in zip(("hits", "n_hits", "fb"), got,
-                                               ref) if max_abs_err([g], [w])]
-                raise AssertionError(
-                    f"search_chunk case {name} mode={mode}: kernel != its "
-                    f"plain version in {bad_in} (max abs err {err}); steps "
-                    f"{steps} vs {want[3]}, reads left {left}")
-        return (f"{name} ({lens.shape[0]} reads, {n_lanes} lanes, steps "
-                f"{want[3]}, fallback {int(want[2].sum())})")
-
+    hold = lambda *a: hold_search_chunk(fm, *a)
     plain_run = lambda: engine.run_search_plain(cfg0, fm, *args0,
                                                 n_lanes=B_LANES)
     plain_out = []
@@ -799,21 +850,9 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
     plain_n = sum(n for _, n in plain_all.values())
     if not plain_all:
         plain_ms, plain_n = event_ms(plain_run, 1), "(not traced)"
-    # must move, from this run's counters: the FM rows the steps needed
-    # (the occ4 bounds' and the E-chain's); per lane iteration a read base
-    # and two meta words; per recorded hit its three words and one strand's
-    # w / bid / meta row in and out; per read its four scalars in and two
-    # out.  The arena never leaves the SM.  The operations are an estimate:
-    # per row its counts of four bases, per iteration the pass over the key
-    # row and some 400 integer operations of the step's own, which nothing
-    # in the run counts; the bytes' time is above theirs either way.
-    P = cfg0.L + cfg0.SL + 2
-    n = lens.shape[0]
-    hits = int(want[1][~want[2]].sum())
-    moved = (rows * 4 * (4 + fm.wpb) + total * (1 + 2 * 8)
-             + hits * (3 * 8 + 2 * 3 * P * 8) + n * (18 + 9))
-    ops = rows * fm.wpb * 4 * 6 + total * (400 + 4 * cfg0.acap)
+    moved, ops = chunk_work(cfg0, fm, want, total, rows)
     b = bound(moved, ops)
+    n = lens.shape[0]
     phases = steps // engine.SWITCH_K
     log(f"search_chunk N={n} B={B_LANES} ACAP={cfg0.acap}: device ms per "
         f"launch {ms:.5f} (ACAP 1024: {ms_1k:.5f}); the call returned in "
@@ -2401,6 +2440,56 @@ def check_sharded(fm, chunk: dict, dev, rows: dict, ptxas: dict) -> dict:
     return out
 
 
+def k5_on_run(calls, warp_us: float) -> dict:
+    """K5 on the intervals of a `sampe` run's first walker call (as
+    `parity_scale.WalkRecorder` keeps them): bitwise against its plain
+    version and the run's values; three readings of CUDA events around 5
+    launches, the plain version's time; its bounds by `walk_footprint`
+    and `walk_bound` at `warp_us` a dependent fetch."""
+    import numpy as np
+    import torch
+    from ibwa_tpu_torch.fm import walk
+    walker, strand, ks, ls, vals, last = calls[0]
+    case = walk_case(walker, strand, ks, ls)
+    mask = walker.sa_intv - 1
+    args = (walker.fm, walker.sampled, case["iv"], case["off"], 0,
+            case["n"], mask)
+    got, stats = walk.lf_resolve(*args)
+    err = max_abs_err([got], [walk.resolve_intervals_plain(*args)[0]])
+    if err or not np.array_equal(got.cpu().numpy().view(np.uint32), vals):
+        raise AssertionError(f"K5 on the run's rows: kernel != plain or the "
+                             f"run's values (max abs err {err})")
+    stream = torch.cuda.current_stream().cuda_stream
+    readings = [event_ms(lambda: walk._launch_resolve(*args, stream), 5)
+                for _ in range(3)]
+    plain_ms = event_ms(lambda: walk.resolve_intervals_plain(*args), 1)
+    fp = walk_footprint(walker.fm, case["strand"], case["k"], mask)
+    _, steps, longest = stats.tolist()
+    if (steps, longest) != (fp["steps"], fp["longest"]):
+        raise AssertionError(f"K5's counters {stats.tolist()} against "
+                             f"walk_footprint {fp}")
+    n_iv = case["iv"].shape[1]
+    return {"rows": case["n"], "intervals": n_iv, "run_waves": last["waves"],
+            "ms": statistics.median(readings), "ms_readings": readings,
+            "plain_ms": plain_ms, "max_abs_err": err,
+            **walk_bound(n_iv, case["n"], fp, walker.fm.wpb, warp_us),
+            "steps": fp["steps"], "longest_walk": fp["longest"],
+            "rows_fetched": fp["rows"], "sampled_words": fp["slots"]}
+
+
+def k5_text(row: dict, warp_us: float) -> str:
+    return (f"{row['rows']} rows of {row['intervals']} intervals (the run: "
+            f"{row['run_waves']} wave) bitwise equal to the plain version "
+            f"and the run's values; {row['steps']} LF steps over "
+            f"{row['rows_fetched']} distinct table rows and "
+            f"{row['sampled_words']} sampled words, longest walk "
+            f"{row['longest_walk']}; device ms {row['ms_readings']} (CUDA "
+            f"events, 5 launches each), plain {row['plain_ms']:.3f}; bounds "
+            f"{row['bytes_bound_ms']:.5f} by bytes, {row['ops_bound_ms']:.5f} "
+            f"by operations, {row['latency_bound_ms']:.5f} by latency "
+            f"({row['longest_walk']} x {warp_us:.3f} us)")
+
+
 def run_scale_phase(warp_us: float, rows: dict) -> dict:
     """Phase 4g: every configuration of `ibwa_tpu_torch/parity_scale.py`
     at full scale on the card (it raises on the first inequality), then
@@ -2411,10 +2500,8 @@ def run_scale_phase(warp_us: float, rows: dict) -> dict:
     device-only `aln` of aln_options' reads, .sai byte-equal to native).
     Adds those readings to the kernel table's rows; returns the launches
     of the configurations' commands."""
-    import numpy as np
     import torch
     from ibwa_tpu_torch import parity_scale
-    from ibwa_tpu_torch.fm import walk
     say = lambda msg: log(f"4g {msg}")
     work = REPO / ".bench" / "parity_scale_torch"
     res = {r["config"]: r for r in parity_scale.run(
@@ -2437,45 +2524,12 @@ def run_scale_phase(warp_us: float, rows: dict) -> dict:
 
     # K5 on repeat_pe's intervals, thousands of rows wide
     calls = res["repeat_pe"]["sampe"].pop("_calls")
-    walker, strand, ks, ls, vals, last = calls[0]
-    case = walk_case(walker, strand, ks, ls)
-    mask = walker.sa_intv - 1
-    args = (walker.fm, walker.sampled, case["iv"], case["off"], 0,
-            case["n"], mask)
-    got, stats = walk.lf_resolve(*args)
-    err = max_abs_err([got], [walk.resolve_intervals_plain(*args)[0]])
-    if err or not np.array_equal(got.cpu().numpy().view(np.uint32), vals):
-        raise AssertionError(f"K5 on repeat_pe's rows: kernel != plain or "
-                             f"the run's values (max abs err {err})")
-    stream = torch.cuda.current_stream().cuda_stream
-    readings = [event_ms(lambda: walk._launch_resolve(*args, stream), 5)
-                for _ in range(3)]
-    plain_ms = event_ms(lambda: walk.resolve_intervals_plain(*args), 1)
-    fp = walk_footprint(walker.fm, case["strand"], case["k"], mask)
-    _, steps, longest = stats.tolist()
-    if (steps, longest) != (fp["steps"], fp["longest"]):
-        raise AssertionError(f"K5's counters {stats.tolist()} against "
-                             f"walk_footprint {fp}")
-    n_iv = case["iv"].shape[1]
-    bd = walk_bound(n_iv, case["n"], fp, walker.fm.wpb, warp_us)
     wave = res["repeat_pe"]["wave_check"][0]
-    rows["lf_walk"]["repeat_pe"] = {
-        "rows": case["n"], "intervals": n_iv, "run_waves": last["waves"],
-        "check_waves": wave["waves"], "ms": statistics.median(readings),
-        "ms_readings": readings, "plain_ms": plain_ms, "max_abs_err": err,
-        **bd, "steps": fp["steps"], "longest_walk": fp["longest"],
-        "rows_fetched": fp["rows"], "sampled_words": fp["slots"]}
-    say(f"K5 on repeat_pe's {case['n']} rows of {n_iv} intervals (the "
-        f"run: {last['waves']} wave; the check: {wave['waves']} waves of "
-        f"{full.wave_rows} rows, bitwise equal): bitwise equal to the plain "
-        f"version and the run's values; {fp['steps']} LF steps over "
-        f"{fp['rows']} distinct table rows and {fp['slots']} sampled words, "
-        f"longest walk {fp['longest']}; device ms {readings} (CUDA events, 5 "
-        f"launches each), plain {plain_ms:.3f}; bounds "
-        f"{bd['bytes_bound_ms']:.5f} by bytes, {bd['ops_bound_ms']:.5f} by "
-        f"operations, {bd['latency_bound_ms']:.5f} by latency "
-        f"({fp['longest']} x {warp_us:.3f} us)")
-    del calls, walker, case, got, args
+    row = rows["lf_walk"]["repeat_pe"] = {
+        **k5_on_run(calls, warp_us), "check_waves": wave["waves"]}
+    say(f"K5 on repeat_pe's rows (the check: {wave['waves']} waves of "
+        f"{full.wave_rows} rows, bitwise equal): {k5_text(row, warp_us)}")
+    del calls
     torch.cuda.empty_cache()
 
     # the width pass and the chunk search on the CLI path, ACAP 1024 / 256
@@ -2506,6 +2560,154 @@ def run_scale_phase(warp_us: float, rows: dict) -> dict:
             f"{st['search_s']:.3f}; device ms a launch (None: the profiler "
             f"saw none) {per}")
     return dict(launches)
+
+
+def chunk_case(fa, fq, dev) -> tuple:
+    """The block table of `fa` on the card and the first PERSIST_N reads
+    of `fq` as the engine takes a chunk (`smoke_chunk`)."""
+    from ibwa_tpu_torch.fm.device import build_device_pair
+    from ibwa_tpu_torch.fm.fmindex import FmIndex
+    from ibwa_tpu_torch.index.builder import load_index
+    fms = (FmIndex(load_index(str(fa), 0)), FmIndex(load_index(str(fa), 1)))
+    return build_device_pair(fms[0], fms[1], dev), smoke_chunk(fms, fq, dev)
+
+
+def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
+                    rounds: int = ROUNDS) -> dict:
+    """Phase 4h: `ibwa_tpu_torch/index_3gbp.py` at `gbp` Gbp on the card
+    (its 32-contig genome indexed in a child process; aln device-only,
+    hybrid and native on both ends and the rates; sampe -R K5 against the
+    host walks; it raises on the first inequality), then on its table:
+    K5 on sampe's recorded intervals (`k5_on_run`), K6 and K8 on the
+    first 2,048 reads of end 1 bitwise against their plain versions
+    (`big_planes_plain`, the plain loop), and both timed in turns with
+    the smoke's chunk (LARGE_TURNS), beside their bounds; the latency
+    bounds at table (c)'s one-warp step (HBM).  Adds the readings to the
+    kernel table's rows as `large_table`; fails at the end if the index
+    took more than the module's 16 GB of host memory; returns the launches
+    of the module's commands."""
+    import gc
+    import torch
+    from ibwa_tpu_torch import index_3gbp
+    from ibwa_tpu_torch.align import engine
+    say = lambda msg: log(f"4h {msg}")
+    t0 = time.perf_counter()
+    res = index_3gbp.run(gbp, align_too=True, device="cuda",
+                         work=REPO / ".bench" / "index3g_torch",
+                         rounds=rounds, say=say)
+    launches = res["launches"]
+    for name in ("width_pass", "search_chunk", "lf_walk"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"4h never launched {name}: {launches}")
+    mem = res["memory"]
+    say(f"{gbp} Gbp, {res['bases']} bases in 32 contigs: every .sai and "
+        f"the SAM equal in {time.perf_counter() - t0:.1f} s; index "
+        f"{res['index_wall_s']} s ({res['path']}), peak RSS "
+        f"{res['max_rss_gb']} GB ({res['rss_bytes_per_base']} bytes a "
+        f"base); on the card {mem['blocks_bytes']} bytes of block table "
+        f"and {mem['sampled_bytes']} of sampled arrays (load "
+        f"{mem['load_s']:.2f} s, build {mem['blocks_s']:.2f} s, upload "
+        f"{mem['upload_s']:.2f} s), max allocated: aln "
+        f"{mem['aln_max_allocated']}, sampe {mem['sampe_max_allocated']} "
+        f"bytes")
+
+    # K5 on sampe's intervals over the large table
+    hbm_us = warp_us["c"]
+    calls = res["sampe"].pop("_calls")
+    row = rows["lf_walk"]["large_table"] = k5_on_run(calls, hbm_us)
+    say(f"K5 on sampe's rows of the {gbp} Gbp table: "
+        f"{k5_text(row, hbm_us)}")
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K6 and K8 on one chunk of end 1, bitwise, then timed in turns with
+    # the smoke's chunk of the same shape
+    cases = {"large": chunk_case(res["_paths"]["fa"], res["_paths"]["fqs"][0],
+                                 dev),
+             "smoke": chunk_case(fa, fq, dev)}
+    fm, chunk = cases["large"]
+    cfg, args = chunk["cfg"], chunk["args"]
+    seqs, lens, md, hs, ssq, bad = args
+    got = engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
+    plain_w = lambda: engine.big_planes_plain(cfg, fm, seqs, lens, hs, ssq)
+    err = max_abs_err(got, plain_w())
+    if err:
+        raise AssertionError(f"width_pass on the large table: kernel != "
+                             f"plain (max abs err {err})")
+    plain_run = lambda: engine.run_search_plain(cfg, fm, *args,
+                                                n_lanes=B_LANES)
+    want = plain_run()
+    seen = hold_search_chunk(fm, f"the {gbp} Gbp table's chunk against the "
+                             f"plain loop", cfg, args, B_LANES, want)
+    counters = engine.search_chunk(cfg, fm, seqs, got, lens, md, hs, bad,
+                                   B_LANES)[3]
+    _, steps, longest, total, n_rows = counters.tolist()
+    times = {name: {"width_pass": [], "search_chunk": []} for name in cases}
+    for name in LARGE_TURNS:
+        fm_t, ch = cases[name]
+        c_t, a_t = ch["cfg"], ch["args"]
+        times[name]["width_pass"].append(timed_ms(
+            lambda: engine.big_planes(c_t, fm_t, a_t[0], a_t[1], a_t[3],
+                                      a_t[4]), 20)[0])
+        times[name]["search_chunk"].append(time_search_chunk(
+            c_t, fm_t, a_t, 10, 1))
+    w_moved, w_ops, fetches, chain = width_work(cfg, fm, got, args)
+    s_moved, s_ops = chunk_work(cfg, fm, want, total, n_rows)
+    table = {"gbp": gbp, "seq_len": fm.seq_len,
+             "table_bytes": nbytes(fm.blocks), "reads": lens.shape[0],
+             "lanes": B_LANES, "acap": cfg.acap, "max_abs_err": err}
+    for kernel, moved, ops, lat, extra in (
+            ("width_pass", w_moved, w_ops, chain,
+             {"bases_fetched": fetches, "longest_chain": chain,
+              "plain_ms": timed_ms(plain_w, 2)[0]}),
+            ("search_chunk", s_moved, s_ops, longest,
+             {"steps": steps, "longest_lane": longest,
+              "lane_iterations": total, "fm_rows": n_rows,
+              "plain_span_ms": event_ms(plain_run, 1)})):
+        mine, smoke = times["large"][kernel], times["smoke"][kernel]
+        rows[kernel]["large_table"] = r = {
+            **table, "ms": statistics.median(mine), "ms_readings": mine,
+            "smoke_ms_readings": smoke,
+            "ratio": statistics.median(mine) / statistics.median(smoke),
+            **bound(moved, ops), "latency_bound_ms": lat * hbm_us / 1e3,
+            **extra}
+        say(f"{kernel} on the {gbp} Gbp table ({r['table_bytes']} bytes), "
+            f"{r['reads']} reads on {B_LANES} lanes, ACAP {cfg.acap}: "
+            f"bitwise equal to its plain version; device ms {mine} against "
+            f"the smoke's 32 Mbp chunk {smoke}, in turns "
+            f"{LARGE_TURNS} ({r['ratio']:.3f}x); bound {r['bound_ms']:.5f} "
+            f"({r['bound_by']}, {moved} bytes); latency {lat} x "
+            f"{hbm_us:.3f} us = {r['latency_bound_ms']:.5f} ms"
+            + (f" to {engine.E_UNROLL * r['latency_bound_ms']:.5f}"
+               if kernel == "search_chunk" else "") + f"; {extra}")
+    say(f"search_chunk: {seen}")
+    del cases, fm, chunk, args, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not res["under_16gb"]:
+        raise AssertionError(f"the index took {res['max_rss_gb']} GB of host "
+                             f"memory, above index_3gbp's "
+                             f"{index_3gbp.RSS_LIMIT_GB} GB")
+    return launches
+
+
+def probe_warp_us(dev) -> dict:
+    """One warp's marginal time a dependent row fetch (K3 at 32 lanes) on
+    the probe's tables b and c, for the latency bounds of 4h alone."""
+    from ibwa_tpu_torch import bench_chase as bc
+    out = {}
+    for label, n, w in PROBE_TABLES[1:]:
+        table = bc.make_table_device(n, w, SEED, dev)
+        recs = bc.probe(table, [32], [4], PROBE_STEPS, PROBE_DELTA, reps=3,
+                        plain_mw=False, label=label)
+        del table
+        if not all(r["parity"] for r in recs):
+            raise AssertionError(f"probe parity failed: {recs}")
+        out[label] = next(r["marginal_us_per_step"] for r in recs
+                          if r["variant"] == "chase")
+    log(f"one-warp dependent fetch, us/step: {out}")
+    return out
 
 
 def run_mesh_aln(fa, fq) -> dict:
@@ -2624,7 +2826,14 @@ def host_kernel(name: str) -> str:
     return name
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--large-table", type=float, metavar="GBP",
+                    help="run phase 4h alone at GBP Gbp (after the build, "
+                         "the smoke's inputs and the probe's one-warp step "
+                         "on tables b and c)")
+    large = ap.parse_args(argv).large_table
     import torch
     if not torch.cuda.is_available():
         print("[smoke] no CUDA device: this check runs on the card only",
@@ -2665,6 +2874,20 @@ def main() -> int:
 
     # ---- 3. kernel vs plain version (K2 and K5 need the aln path's index)
     fa, fq = make_inputs()
+    if large is not None:       # 4h alone
+        rows = {name: {} for name in ("width_pass", "search_chunk",
+                                      "lf_walk")}
+        launches = run_large_phase(large, probe_warp_us(dev), rows, fa, fq,
+                                   dev, rounds=1)
+        log(f"launches of 4h (the large table's commands): {launches}; "
+            f"all {time.perf_counter() - t_start:.0f} s")
+        print(smi)
+        print(json.dumps({"large_table": {
+            name: r["large_table"] for name, r in rows.items()}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     from ibwa_tpu_torch import bench_chase
     from ibwa_tpu_torch.fm.device import build_device_pair
     from ibwa_tpu_torch.fm.fmindex import FmIndex
@@ -2801,9 +3024,18 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.0f} s")
 
     # ---- 4g. the scale configurations, counted on a line of their own
+    t4 = time.perf_counter()
     scale_launches = run_scale_phase(warp_us["b"], rows)
     log(f"launches of 4g (the scale configurations' commands): "
-        f"{scale_launches}; all phases "
+        f"{scale_launches}; 4g {time.perf_counter() - t4:.0f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 4h. a large table, counted on a line of their own
+    t4 = time.perf_counter()
+    large_launches = run_large_phase(LARGE_GBP, warp_us, rows, fa, fq, dev)
+    log(f"launches of 4h (the large table's commands): {large_launches}; "
+        f"4h {time.perf_counter() - t4:.0f} s; all phases "
         f"{time.perf_counter() - t_start:.0f} s")
 
     # ---- 5. result lines
