@@ -22,13 +22,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      load, mid-search, parking, the last flush, bad reads, no lane or every
      lane finished, fewer reads than lanes), 1,024 lanes x ACAP 256 and
      1024, all 30 state fields, the 5 output arrays and the count of reads
-     left; K8 search_chunk (one launch per chunk; its step and switch
-     stages are the device code of the two before) on the smoke chunk
-     against the plain loop and against the loop of the phased kernels,
-     against the latter also on the `bad`, `tail` and `all` inputs of
-     `engine.switch_cases` and at ACAP 1024, with and without its
-     prefetch: hit counts, fallback flags, the step count and the hits
-     below each count; K3
+     left; K8 search_chunk (one launch per chunk, every lane the card
+     holds taking reads from a queue; its step and switch stages are the
+     device code of the two before) on the smoke chunk against the plain
+     loop and against the loop of the phased kernels, against the latter
+     also on the `bad`, `tail` and `all` inputs of `engine.switch_cases`,
+     at ACAP 1024 and on grids of 1, 33 and 132 blocks, with and without
+     its prefetch: hit counts, fallback flags and causes, the step count
+     (`engine.finish_chunk` from the reads' own iterations) and the hits
+     below each count; its launch shape, its step loop's warp
+     instructions in the SASS (`cuobjdump -sass`) for its operations and
+     issue bounds; its first version (`search_chunk_first.cu`)
+     against the plain loop and timed in turns with it at ACAP 256 and
+     1024; `ibwa_tpu_torch.profile_step`'s stage clocks and lane counts of
+     both; and the cap sweep (iter_cap 384, 1,536, 6,144 x ACAP 256,
+     1,024 through `EngineConfig`: bitwise equal to the plain loop, every
+     read kept on the card equal to the host search's hits, ms, fallback
+     by cause, longest read); K3
      chase and K4 chase_mw (W=4) on the probe's three tables; K5 lf_walk
      (one persistent launch from SA intervals to SA values) on 131,072
      random rows plus the edge rows as intervals of width 1 and on 20,000
@@ -136,7 +146,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         the run's values, bitwise, timed beside its bounds, and the width
         pass and the chunk search timed on the CLI path (a profiler
         session around `aln`) at ACAP 1024 (the gappy set) and 256 (the
-        default) on the same reads
+        default) on the same reads; every device `aln`'s overflow fallback
+        by cause
      h. a large table (`ibwa_tpu_torch/index_3gbp.py` at 0.25 Gbp, run
         after g, with the launches of its commands counted on a line of
         their own): scripts/index_3gbp.py's 32-contig genome generated and
@@ -151,7 +162,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         then K5 on sampe's recorded intervals (`k5_on_run`), and K6 and
         K8 on the first 2,048 reads of end 1 over the 250 MB table bitwise
         against their plain versions and timed in turns with the smoke's
-        32 Mbp chunk, beside their bounds (latency at table (c)'s step)
+        32 Mbp chunk, beside their bounds (latency at table (c)'s step),
+        K8's fallback split by cause, and the cap sweep on that chunk
+        against the phased kernels' loop
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
@@ -235,6 +248,10 @@ MESH_IDX = (2, 4)               # row ranges the smoke splits the table in
 MESH_TURNS = ("flat", 2, 4, 4, 2, "flat")   # B8's timing order
 LARGE_GBP = 0.25                # 4h's genome: a 250 MB block table
 LARGE_TURNS = ("large", "smoke", "smoke", "large", "large", "smoke")
+FIRST_TURNS = ("new", "first", "first", "new")   # K8 and its first version
+PROFILE_LANES = (132, 264, 528, 1056, 2048)      # profile_step --mode lanes
+SWEEP = [(acap, cap) for acap in (256, 1024)     # K8's caps on the card
+         for cap in (384, 1536, 6144)]
 REPO = pathlib.Path(__file__).resolve().parent
 WORK = REPO / ".bench" / "smoke"
 
@@ -481,12 +498,12 @@ def smoke_chunk(fms, fq, dev) -> dict:
     reads = pipeline._load(str(fq), opt)[:engine.PERSIST_N]
     seqs, rseqs = [r.seq for r in reads], [r.rseq for r in reads]
     cfg, lens, md = engine.batch_config(seqs, opt, fms[0].seq_len)
-    return {"cfg": cfg, "opt": opt, "seqs": seqs, "rseqs": rseqs,
+    return {"cfg": cfg, "opt": opt, "seqs": seqs, "rseqs": rseqs, "fms": fms,
             "args": engine.pack_chunk(cfg, seqs, rseqs, lens, md,
                                       opt.seed_len, dev)}
 
 
-def check_search_step(fm, chunk: dict) -> dict:
+def check_search_step(fm, chunk: dict, sass: dict) -> dict:
     """The search-step kernel against the plain step on the card: every
     case of `engine.step_cases` over the smoke chunk, at ACAP 256 and
     1024, 1 step and SWITCH_K steps per launch, all 30 state fields
@@ -533,34 +550,42 @@ def check_search_step(fm, chunk: dict) -> dict:
         pool = inputs(lambda: engine.clone_state(st), 2)
         plain_ms, _ = timed_ms(
             lambda: plain(cfg, seqs, next(pool), engine.SWITCH_K), 2)
-        # what these SWITCH_K steps must move, from the counters they
-        # advanced: per lane-step two FM rows, a read base, two meta
-        # words, the freed key and the next pop's entry; five words per
-        # pushed child; per recorded hit its three words and one strand's
-        # w / bid / meta row in and out; and per launch the state once in
-        # (key rows, scalars) and out (scalars).  The E-chain's rows and
-        # bases are left out: the counters do not show how many there were.
-        after = engine.search_steps(cfg, fm, seqs, engine.clone_state(st),
-                                    engine.SWITCH_K)
-        lane_steps = int((after.lane_it - st.lane_it).sum())
-        pushes = int((after.seqc - st.seqc).sum())
-        hits = int((after.n_hits - st.n_hits).sum())
+        # what these SWITCH_K steps must move, from the states they leave
+        # (`step_work`): per lane-step two FM rows, a read base, two meta
+        # words, the freed key and the next pop's entry; per E-chain fetch
+        # two more rows and a base; five words per pushed child; per
+        # recorded hit its three words and one strand's w / bid / meta row
+        # in and out; and per launch the state once in (key rows, scalars)
+        # and out (scalars).  Operations and issue: a lane-step that is not
+        # its lane's last issues at least a completed step's instructions
+        # (`sass_step_loop`'s min_step / min_int, K8's step loop: the same
+        # search_step.cuh), the integer ones on 32 threads.
+        work = step_work(cfg, fm, seqs, st, engine.SWITCH_K)
+        lane_steps, pushes = work["lane_steps"], work["pushes"]
+        hits, e_fetches = work["hits"], work["e_fetches"]
         P = cfg.L + cfg.SL + 2
-        moved = (lane_steps * (2 * 4 * (4 + fm.wpb) + 1 + 2 * 8 + 4 + 4 * 4)
+        row_b = 4 * (4 + fm.wpb)
+        moved = (lane_steps * (2 * row_b + 1 + 2 * 8 + 4 + 4 * 4)
+                 + e_fetches * (2 * row_b + 1)
                  + pushes * 5 * 4 + hits * (3 * 8 + 2 * 3 * P * 8)
                  + B_LANES * (acap * 4 + 2 * 15 * 8))
-        ops = lane_steps * (2 * fm.wpb * 4 * 6 + 400 + 4 * acap)
+        done = max(lane_steps - B_LANES, 0)
+        ops = done * sass["new"]["min_int"] * 32
         b = bound(moved, ops)
+        issue = issue_ms(done * sass["new"]["min_step"])
         log(f"search_step B={B_LANES} ACAP={acap} on {name}: device ms per "
             f"launch {ms[1]:.5f} at 1 step, {ms[engine.SWITCH_K]:.5f} at "
             f"{engine.SWITCH_K} steps ({lane_steps} lane-steps, {pushes} "
-            f"pushes, {hits} hits); {engine.SWITCH_K} plain steps "
-            f"{plain_ms:.5f}; bound {b['bound_ms']:.5f} ({b['bound_by']}, "
-            f"{moved} bytes)")
+            f"pushes, {hits} hits, {e_fetches} E-chain fetches); "
+            f"{engine.SWITCH_K} plain steps {plain_ms:.5f}; bound "
+            f"{b['bound_ms']:.5f} ({b['bound_by']}, {moved} bytes, {ops} "
+            f"operations); issue {issue:.5f} ms")
         if acap == 256:   # the main path's arena
             row = {"max_abs_err": 0, "ms": ms[engine.SWITCH_K],
                    "plain_ms": plain_ms, **b, "library_ms": None,
-                   "ms_1_step": ms[1], "steps_per_launch": engine.SWITCH_K}
+                   "issue_ms": issue, "e_fetches": e_fetches,
+                   "lane_steps": lane_steps, "ms_1_step": ms[1],
+                   "steps_per_launch": engine.SWITCH_K}
     kernels.reset_launches()
     return row
 
@@ -679,34 +704,53 @@ def kernel_ms(us: dict, name: str) -> float:
     return sum(v for key, (v, _) in us.items() if name in key) / 1e3
 
 
-def launch_chunk(cfg, fm, args, n_lanes: int, mode: int, big=None):
-    """`engine.search_chunk` on width planes of its own (the kernel updates
-    them in place; `big`, else made here), in the kernel's `mode`: 1 as
-    the engine runs it, 0 without the step's rows asked ahead."""
+def launch_chunk(cfg, fm, args, mode: int, big=None, max_blocks: int = 0):
+    """`engine._launch_search_chunk` on width planes of its own (the kernel
+    updates them in place; `big`, else made here), in the kernel's `mode`:
+    1 as the engine runs it, 0 without the step's rows asked ahead;
+    `max_blocks` > 0 caps its grid below the card's resident blocks."""
     import torch
     from ibwa_tpu_torch.align import engine
     seqs, lens, md, hs, ssq, bad = args
     if big is None:
         big = engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
     return engine._launch_search_chunk(
+        cfg, fm, seqs, big, lens, md, hs, bad,
+        torch.cuda.current_stream().cuda_stream, mode, max_blocks)
+
+
+def launch_first(cfg, fm, args, mode: int, big=None, n_lanes=B_LANES):
+    """K8's first version (`engine._launch_search_chunk_first`, kept to be
+    timed beside the redesign) over `n_lanes` static lanes, as
+    `launch_chunk`."""
+    import torch
+    from ibwa_tpu_torch.align import engine
+    seqs, lens, md, hs, ssq, bad = args
+    if big is None:
+        big = engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
+    return engine._launch_search_chunk_first(
         cfg, fm, seqs, big, lens, md, hs, bad, n_lanes,
         torch.cuda.current_stream().cuda_stream, mode)
 
 
 def time_search_chunk(cfg, fm, args, reps: int, mode: int,
-                      key: str = "search_chunk_kernel") -> float:
-    """Device ms of one `search_chunk` launch on the chunk `args` (the
-    kernel whose name holds `key`); where the profiler sees nothing, the
+                      key: str = "search_chunk_kernel",
+                      first: bool = False) -> float:
+    """Device ms of one K8 launch on the chunk `args` (the kernel whose name
+    holds `key`; `first`: the first version's launch, whose kernel is
+    search_chunk_first_kernel); where the profiler sees nothing, the
     CUDA-event span of the launches alone, on planes made before."""
     import torch
     from ibwa_tpu_torch.align import engine
-    n_lanes = min(B_LANES, args[1].shape[0])
-    launch_chunk(cfg, fm, args, n_lanes, mode)
+    launch = launch_first if first else launch_chunk
+    if first:
+        key = key.replace("search_chunk", "search_chunk_first")
+    launch(cfg, fm, args, mode)
     torch.cuda.synchronize()
 
     def body():
         for _ in range(reps):
-            launch_chunk(cfg, fm, args, n_lanes, mode)
+            launch(cfg, fm, args, mode)
 
     ms = kernel_ms(traced(body, reps), key)
     if ms > 0:
@@ -714,56 +758,212 @@ def time_search_chunk(cfg, fm, args, reps: int, mode: int,
     seqs, lens, md, hs, ssq, bad = args
     planes = iter([engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
                    for _ in range(reps)])
-    ms = event_ms(lambda: launch_chunk(cfg, fm, args, n_lanes, mode,
-                                       next(planes)), reps)
-    log(f"search_chunk device ms {ms:.5f} is the CUDA-event span of {reps} "
+    ms = event_ms(lambda: launch(cfg, fm, args, mode, next(planes)), reps)
+    log(f"{key} device ms {ms:.5f} is the CUDA-event span of {reps} "
         f"launches")
     return ms
 
 
-def hold_search_chunk(fm, name, cfg, args, n_lanes, want) -> str:
-    """K8 on the chunk `args` against `want`, a plain or phased loop's
-    (hits, n_hits, fb, steps), with and without the step's rows asked
-    ahead: hit counts, fallback flags, the step count and the hits below
-    each count, bitwise.  A line that names the case."""
+def cause_split(cause, fb) -> dict:
+    """{FB_* name: reads} of the reads at the host."""
     import torch
     from ibwa_tpu_torch.align import engine
-    lens = args[1]
-    for mode in (1, 0):
-        out_h, nh, fb, counters = launch_chunk(cfg, fm, args, n_lanes, mode)
-        left, steps = counters.tolist()[:2]
-        got = (engine.masked_hits(out_h.permute(1, 2, 0), nh, fb), nh,
-               fb.to(torch.int64))
-        ref = (engine.masked_hits(*want[:3]), want[1],
-               want[2].to(torch.int64))
+    counts = torch.bincount(cause[fb].cpu(), minlength=len(engine.FB_CAUSES)
+                            + 1).tolist()
+    return dict(zip(engine.FB_CAUSES, counts[1:]))
+
+
+def hold_search_chunk(fm, name, cfg, args, n_lanes, want, modes=(1, 0)):
+    """K8 on the chunk `args`, finished as the engine finishes it
+    (`engine.finish_chunk`, the step count over `n_lanes` lanes), against
+    `want`, a plain or phased loop's (hits, n_hits, fb, steps, cause), in
+    each step mode of `modes`: hit counts, fallback flags, the step count,
+    the hits below each count and, where `want` has them (the plain loop),
+    the fallback causes, bitwise.  Returns a line that names the case, and
+    the last launch's finished outputs, with its `it` and counters."""
+    import torch
+    from ibwa_tpu_torch.align import engine
+    for mode in modes:
+        out_h, nh, fb, it, cause, counters = launch_chunk(cfg, fm, args,
+                                                          mode)
+        hits, nh, fb, steps, cause = engine.finish_chunk(
+            out_h.permute(1, 2, 0), nh, fb, it, cause, n_lanes)
+        got = [engine.masked_hits(hits, nh, fb), nh, fb.to(torch.int64)]
+        ref = [engine.masked_hits(*want[:3]), want[1],
+               want[2].to(torch.int64)]
+        if want[4] is not None:
+            got.append(cause)
+            ref.append(want[4])
         err = max_abs_err(got, ref)
-        if err or left != 0 or steps != want[3]:
-            bad_in = [n for n, g, w in zip(("hits", "n_hits", "fb"), got,
-                                           ref) if max_abs_err([g], [w])]
+        if err or steps != want[3]:
+            bad_in = [n for n, g, w in zip(("hits", "n_hits", "fb", "cause"),
+                                           got, ref) if max_abs_err([g], [w])]
             raise AssertionError(
                 f"search_chunk case {name} mode={mode}: kernel != its "
                 f"plain version in {bad_in} (max abs err {err}); steps "
-                f"{steps} vs {want[3]}, reads left {left}")
-    return (f"{name} ({lens.shape[0]} reads, {n_lanes} lanes, steps "
-            f"{want[3]}, fallback {int(want[2].sum())})")
+                f"{steps} vs {want[3]}")
+    text = (f"{name} ({args[1].shape[0]} reads, steps {want[3]} over "
+            f"{n_lanes} lanes, fallback {int(want[2].sum())}"
+            + (f" {cause_split(want[4], want[2])}" if want[4] is not None
+               else "") + ")")
+    return text, (hits, nh, fb, steps, cause, it, counters)
 
 
-def chunk_work(cfg, fm, want, total: int, rows: int) -> tuple[int, int]:
-    """The bytes and the operations a chunk search must take, from this
-    run's counters: the FM rows the steps needed (the occ4 bounds' and the
-    E-chain's); per lane iteration a read base and two meta words; per
-    recorded hit its three words and one strand's w / bid / meta row in
-    and out; per read its four scalars in and two out.  The arena never
-    leaves the SM.  The operations are an estimate: per row its counts of
-    four bases, per iteration the pass over the key row and some 400
-    integer operations of the step's own, which nothing in the run
-    counts; the bytes' time is above theirs either way."""
+INT_SASS = ("IADD3", "IADD", "IMAD", "ISETP", "IMNMX", "VIMNMX", "VIADD",
+            "LOP3", "LOP", "SHF", "SHL", "SHR", "SEL", "POPC", "FLO", "LEA",
+            "PRMT", "BMSK", "BREV", "SGXT", "IABS", "ICMP")
+
+
+def sass_cfg(body: str):
+    """The instructions of one function's SASS and each one's successors:
+    (list of (address, mnemonic), {address: [successor addresses]}).  A
+    branch goes to its target, and on to the next instruction too when it
+    has a predicate or only splits a divergent warp (BRA.DIV); EXIT and
+    RET end a path unless predicated."""
+    ins = [(int(a, 16), pred.strip(), op, rest) for a, pred, op, rest in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9.]*)([^;]*);", body)]
+    succ = {}
+    for k, (a, pred, op, rest) in enumerate(ins):
+        base, nxt = op.split(".")[0], (ins[k + 1][0] if k + 1 < len(ins)
+                                       else None)
+        conditional = bool(pred) and pred != "@PT"
+        out = []
+        if base == "BRA":
+            t = re.search(r"(0x[0-9a-f]+)", rest)
+            out = [int(t.group(1), 16)] if t else []
+            if conditional or ".DIV" in op:
+                out.append(nxt)
+        elif base not in ("EXIT", "RET") or conditional:
+            out = [nxt]
+        succ[a] = [x for x in out if x is not None]
+    return [(a, op.split(".")[0]) for a, _, op, _ in ins], succ
+
+
+def sass_step_loop(so: str, wpb: int) -> dict:
+    """K8's step loop in the SASS of the built library (`cuobjdump -sass`),
+    for the engine's instantiation (search_chunk_kernel<wpb, prefetch, no
+    clocks>) and the first version's.  The step loop is the largest loop
+    inside the read loop.  Two counts of its warp instructions, and of
+    them the integer ones (INT_SASS): `step_loop`, every instruction of
+    its body once (a static count: the branches a step skips and its
+    inner loops' repeats both make it no bound), and `min_step`, the
+    fewest a completed step issues, the shortest path from the loop's
+    head through the arena pass's reduction (REDUX) to its backward
+    branch, inner loops once (a lower bound of every step that does not
+    end its read).  Raises where the dump or the loops are not found."""
+    from ibwa_tpu_torch import kernels
+    tool = pathlib.Path(kernels._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", so], check=True,
+                          capture_output=True, text=True).stdout
+    out = {}
+    for design, pat in (
+            ("new", rf"\S*search_chunk_kernelILi{wpb}ELb1ELb0E"),
+            ("first", rf"\S*search_chunk_first_kernelILi{wpb}ELb1ELb0E")):
+        body = next((f for f in re.split(r"\n\s*Function : ", text)
+                     if re.match(pat, f)), "")
+        ins, succ = sass_cfg(body)
+        ops = dict(ins)
+        loops = [(t, a) for a, nxt in succ.items() for t in nxt
+                 if t <= a and ops[a] == "BRA"]
+        inside = lambda x, y: x != y and y[0] <= x[0] and x[1] <= y[1]
+        steps = [x for x in loops if loops and inside(
+            x, max(loops, key=lambda y: y[1] - y[0]))]
+        if not steps:
+            raise AssertionError(f"K8's SASS ({design}): no step loop inside "
+                                 f"a read loop in {pat} ({loops})")
+        head, latch = max(steps, key=lambda x: x[1] - x[0])
+        red = next((a for a, op in ins if head <= a <= latch
+                    and op == "REDUX"), None)
+        if red is None:
+            raise AssertionError(f"K8's SASS ({design}): no REDUX in the "
+                                 f"step loop")
+
+        def shortest(src, dst, weight):   # forward edges only: a DAG
+            best = {a: math.inf for a, _ in ins if src <= a <= dst}
+            best[src] = weight(ops[src])
+            for a in sorted(best):
+                for t in succ[a]:
+                    if a < t <= dst and best[a] + weight(ops[t]) < best[t]:
+                        best[t] = best[a] + weight(ops[t])
+            return best[dst]
+
+        body_ops = [op for a, op in ins if head <= a <= latch]
+        out[design] = {"step_loop": len(body_ops),
+                       "int": sum(op in INT_SASS for op in body_ops),
+                       "entry": len(ins)}
+        for key, w in (("min_step", lambda op: 1),
+                       ("min_int", lambda op: int(op in INT_SASS))):
+            out[design][key] = int(shortest(head, red, w)
+                                   + shortest(red, latch, w) - w(ops[red]))
+    log(f"K8's SASS at intv {16 * wpb}: {out}")
+    return out
+
+
+def chunk_work(cfg, fm, want, counters: dict, sass: dict
+               ) -> tuple[int, int, int, int]:
+    """The bytes, the operations and the warp instructions a chunk search
+    must take, from this run's counters (`engine.COUNTERS`) and K8's SASS
+    (`sass_step_loop`): the FM rows the steps needed (the occ4 bounds' and
+    the E-chain's) and a read base per E-chain fetch; per lane iteration a
+    read base and two meta words; per recorded hit its three words and one
+    strand's w / bid / meta row in and out; per read its four scalars in
+    and four words out.  The arena never leaves the SM.  Every iteration
+    but a read's last completes a step, which issues at least `min_step`
+    warp instructions, `min_int` of them integer ones on 32 threads each:
+    (operations, instructions) at least; and at most the step loop's
+    static count an iteration (the last value)."""
     P = cfg.L + cfg.SL + 2
     n = want[1].shape[0]
     hits = int(want[1][~want[2]].sum())
-    moved = (rows * 4 * (4 + fm.wpb) + total * (1 + 2 * 8)
-             + hits * (3 * 8 + 2 * 3 * P * 8) + n * (18 + 9))
-    return moved, rows * fm.wpb * 4 * 6 + total * (400 + 4 * cfg.acap)
+    total = counters["iterations"]
+    moved = (counters["rows"] * 4 * (4 + fm.wpb) + counters["e_fetches"]
+             + total * (1 + 2 * 8) + hits * (3 * 8 + 2 * 3 * P * 8)
+             + n * (18 + 9 + 8))
+    done = max(total - n, 0)
+    return (moved, done * sass["min_int"] * 32, done * sass["min_step"],
+            total * sass["step_loop"])
+
+
+def issue_ms(instructions: int) -> float:
+    """The least time the card takes to issue `instructions` warp
+    instructions, WARP_ISSUE_PER_CLOCK_SM a clock an SM."""
+    return instructions / WARP_ISSUE_PER_S * 1e3
+
+
+def step_work(cfg, fm, seqs, st, n: int) -> dict:
+    """What n plain steps from the lane state `st` did, counted from the
+    states they start from and leave: lane-steps, pushes, recorded hits,
+    and the E-chain's fetches (a lane that steps on an E entry with at
+    least two bases left whose first base extends: the chain's next base
+    needs one occ1 pair, as the step's E_UNROLL loop fetches it)."""
+    import torch
+    from ibwa_tpu_torch.align import engine
+    from ibwa_tpu_torch.u32 import MASK
+    st = engine.clone_state(st)
+    occ1 = engine._occ(fm)[1]
+    out = dict.fromkeys(("lane_steps", "pushes", "hits", "e_fetches"), 0)
+    for _ in range(n):
+        e_a, e_i = (st.pm1 >> 2) & 1, (st.pm1 >> 3) & 0x1FFF
+        crid = torch.clamp(st.rid, 0, seqs.shape[0] - 1)
+        base = seqs[crid, e_a, torch.clamp(e_i - 1, 0, cfg.L - 1)].to(
+            torch.int64)
+        c = torch.clamp(base, max=3)
+        o = occ1(fm, 1 - e_a, st.pk, st.pl, c)
+        k2, l2 = (fm.L2[c] + o[:, 0] + 1) & MASK, (fm.L2[c] + o[:, 1]) & MASK
+        brk = (torch.zeros_like(st.fb) if cfg.nonstop else
+               (st.pkey >> 20) > st.best_score + cfg.s_mm)
+        nxt = engine._search_step(cfg, fm, seqs, st)
+        act = ((nxt.lane_it > st.lane_it) & (nxt.lane_it <= cfg.iter_cap)
+               & ~brk)
+        fetch = (act & ((st.pm1 & 3) == engine.STATE_E) & (e_i > 1)
+                 & (base < 4) & (k2 <= l2))
+        out["lane_steps"] += int((nxt.lane_it - st.lane_it).sum())
+        out["pushes"] += int((nxt.seqc - st.seqc).sum())
+        out["hits"] += int((nxt.n_hits - st.n_hits).sum())
+        out["e_fetches"] += int(fetch.sum())
+        st = nxt
+    return out
 
 
 def width_work(cfg, fm, got, args) -> tuple[int, int, int, int]:
@@ -784,29 +984,42 @@ def width_work(cfg, fm, got, args) -> tuple[int, int, int, int]:
             int(main.sum(dim=2).max()))
 
 
-def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
-    """K8 against its plain version, the phased loop, on the card.  Against
-    the plain loop (`engine.run_search_plain`, which shares no device code
-    with it): the smoke chunk, 2,048 reads on 1,024 lanes, as the main path
-    gives it.  Against the loop of the phased kernels
-    (`engine.run_search_phased`): the same chunk at ACAP 256 and 1024, and
+def check_search_chunk(fm, chunk: dict, switch_cases: dict, sass: dict
+                       ) -> dict:
+    """K8 against its plain version, the phased loop, on the card, every
+    launch finished as the engine finishes it (`engine.finish_chunk`, the
+    step count over B_LANES lanes).  Against the plain loop
+    (`engine.run_search_plain`, whose stages are the plain step and
+    switch; on a card it reaches K1 and K2 through their wrappers): the
+    smoke chunk, 2,048 reads, as the main path gives it, the fallback's
+    causes too.  Against the loop of the phased kernels
+    (`engine.run_search_phased`): the same chunk at ACAP 256 and 1024, on
+    grids of 1, 33 and 132 blocks (the queue's order must not matter), and
     the read inputs of the `bad`, `tail` and `all` cases of
-    `engine.switch_cases`.  Each with and without the step's rows asked
-    ahead: hit counts, fallback flags, the step count and the hits below
-    each count, bitwise.  Timed on the smoke chunk beside both loops."""
+    `engine.switch_cases`.  With and without the step's rows asked ahead:
+    hit counts, fallback flags, the step count and the hits below each
+    count, bitwise.  Then the launch's shape; the first version
+    (`csrc/search_chunk_first.cu`) against the plain loop, and timed in
+    turns with the redesign at ACAP 256 and 1024 (FIRST_TURNS); the stage
+    and lane profiles of both (`ibwa_tpu_torch.profile_step`); the cap
+    sweep (`cap_sweep`)."""
     import torch
-    from ibwa_tpu_torch import kernels
+    from ibwa_tpu_torch import kernels, profile_step
     from ibwa_tpu_torch.align import engine
     cfg0, args0 = chunk["cfg"], chunk["args"]
-    hold = lambda *a: hold_search_chunk(fm, *a)
+    seqs, lens, md, hs, ssq, bad = args0
+    hold = lambda *a, **k: hold_search_chunk(fm, *a, **k)[0]
     plain_run = lambda: engine.run_search_plain(cfg0, fm, *args0,
                                                 n_lanes=B_LANES)
     plain_out = []
-    plain_all = traced(lambda: plain_out.append(plain_run()), 1)
+    # the plain loop's CUDA-event span, its ~300,000 launches from the host
+    # included (under the profiler it takes ~90 s)
+    plain_ms = event_ms(lambda: plain_out.append(plain_run()), 1)
     want = plain_out[-1]
-    seen = [hold("smoke against the plain loop", cfg0, args0, B_LANES, want),
-            hold("smoke", cfg0, args0, B_LANES, engine.run_search_phased(
-                cfg0, fm, *args0, n_lanes=B_LANES))]
+    text, (_, _, _, _, cause, it, counters) = hold_search_chunk(
+        fm, "smoke against the plain loop", cfg0, args0, B_LANES, want)
+    phased = engine.run_search_phased(cfg0, fm, *args0, n_lanes=B_LANES)
+    seen = [text, hold("smoke", cfg0, args0, B_LANES, phased)]
     for name in ("bad", "tail", "all"):
         ch = switch_cases[name]
         args = (args0[0][:ch.N].contiguous(), ch.lens, ch.max_diff0,
@@ -817,58 +1030,189 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict) -> dict:
     seen.append(hold("ACAP 1024", cfg1k, args0, B_LANES,
                      engine.run_search_phased(cfg1k, fm, *args0,
                                               n_lanes=B_LANES)))
+    for blocks in (1, 33, 132):
+        out_h, nh, fb, it_b, cause_b, _ = launch_chunk(cfg0, fm, args0, 1,
+                                                       max_blocks=blocks)
+        got = engine.finish_chunk(out_h.permute(1, 2, 0), nh, fb, it_b,
+                                  cause_b, B_LANES)
+        err = max_abs_err([engine.masked_hits(*got[:3]), *got[1:3], it_b,
+                           got[4]],
+                          [engine.masked_hits(*want[:3]), *want[1:3], it,
+                           want[4]])
+        if err or got[3] != want[3]:
+            raise AssertionError(f"search_chunk on {blocks} blocks differs "
+                                 f"from the card's own grid (max abs err "
+                                 f"{err})")
+        seen.append(f"a grid of {blocks} blocks")
     log(f"search_chunk: n_hits, fb, steps and the hits below n_hits bitwise "
-        f"equal to the plain loop and to the phased kernels' loop, with and "
-        f"without the rows asked ahead, on {'; '.join(seen)}")
+        f"equal to the plain loop (the fallback's causes too) and to the "
+        f"phased kernels' loop, with and without the rows asked ahead, on "
+        f"{'; '.join(seen)}")
+    c = dict(zip(engine.COUNTERS, counters.tolist()))
+    shape = {acap: engine.search_chunk_shape(
+        dataclasses.replace(cfg0, acap=acap), fm, seqs,
+        engine.big_planes(cfg0, fm, seqs, lens, hs, ssq), lens, md, hs, bad)
+        for acap in (256, 1024)}
+    log(f"search_chunk's launch: {shape}")
+
+    # ---- the first version against the plain loop, its own step count
+    f_h, f_nh, f_fb, f_c = launch_first(cfg0, fm, args0, 1)
+    err = max_abs_err([engine.masked_hits(f_h.permute(1, 2, 0), f_nh, f_fb),
+                       f_nh, f_fb.to(torch.int64)],
+                      [engine.masked_hits(*want[:3]), want[1],
+                       want[2].to(torch.int64)])
+    if err or f_c.tolist()[:2] != [0, want[3]]:
+        raise AssertionError(f"search_chunk_first differs from the plain "
+                             f"loop (max abs err {err}, counters {f_c})")
+    first_longest = f_c.tolist()[2]
 
     # ---- nothing in the call waits for the card: torch raises on any op
     # that would, whatever the host's load
-    seqs, lens, md, hs, ssq, bad = args0
     big = engine.big_planes(cfg0, fm, seqs, lens, hs, ssq)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     t0 = time.perf_counter()
-    counters = engine.search_chunk(cfg0, fm, seqs, big, lens, md, hs, bad,
-                                   B_LANES)[3]
+    engine.search_chunk(cfg0, fm, seqs, big, lens, md, hs, bad)
     call_us = (time.perf_counter() - t0) * 1e6
     torch.cuda.set_sync_debug_mode("default")
-    left, steps, longest, total, rows = counters.tolist()
 
-    # ---- times on the smoke chunk: the kernel, the phased kernels' loop,
-    # the plain loop
-    reps = 10
-    ms = time_search_chunk(cfg0, fm, args0, reps, 1)
-    ms_1k = time_search_chunk(cfg1k, fm, args0, 4, 1)
+    # ---- times on the smoke chunk in turns with the first version, the
+    # phased kernels' loop, the plain loop
+    turns = {}
+    for acap, cfg, reps in ((256, cfg0, 10), (1024, cfg1k, 4)):
+        for design in FIRST_TURNS:
+            turns.setdefault(acap, {}).setdefault(design, []).append(
+                time_search_chunk(cfg, fm, args0, reps, 1,
+                                  first=design == "first"))
+    mode0 = time_search_chunk(cfg0, fm, args0, 10, 0)
+    med = {acap: {d: statistics.median(v) for d, v in t.items()}
+           for acap, t in turns.items()}
+    ms = med[256]["new"]
     phased_run = lambda: engine.run_search_phased(cfg0, fm, *args0,
                                                   n_lanes=B_LANES)
     phased_us = traced(lambda: (phased_run(), phased_run()), 2)
-    phased = {k: kernel_ms(phased_us, k) for k in (
+    phased_ms = {k: kernel_ms(phased_us, k) for k in (
         "lane_switch_kernel", "search_steps_kernel")}
     if not phased_us:   # the loop's span, the host's waits included
-        phased = {"the loop's CUDA-event span": event_ms(phased_run, 2)}
-    plain_ms = sum(us for us, _ in plain_all.values()) / 1e3
-    plain_n = sum(n for _, n in plain_all.values())
-    if not plain_all:
-        plain_ms, plain_n = event_ms(plain_run, 1), "(not traced)"
-    moved, ops = chunk_work(cfg0, fm, want, total, rows)
+        phased_ms = {"the loop's CUDA-event span": event_ms(phased_run, 2)}
+
+    # ---- the profiles, before (the first version) and after
+    stream = torch.cuda.current_stream().cuda_stream
+    mhz = profile_step.sm_clock_mhz()
+    stages = {
+        "new": profile_step.profile_stages(cfg0, fm, args0, stream, mhz),
+        "first": profile_step.profile_stages(cfg0, fm, args0, stream, mhz,
+                                             first=True, n_lanes=B_LANES)}
+    lanes = {"new": profile_step.time_lanes(cfg0, fm, args0, PROFILE_LANES),
+             "first": profile_step.time_lanes(cfg0, fm, args0, PROFILE_LANES,
+                                              first=True)}
+    for design in ("first", "new"):
+        st = stages[design]
+        log(f"profile_step stages, {design}: {st['lanes']} lanes, "
+            f"{st['iterations']} iterations, longest lane "
+            f"{st['longest_lane']}, SM clock {mhz:.0f} MHz; clocks an "
+            f"iteration (share): " + ", ".join(
+                f"{k} {v['per_iteration']:.1f} ({v['share']:.3f})"
+                for k, v in st["stages"].items()))
+        log(f"profile_step lanes, {design}: device ms at (lanes, blocks): "
+            + ", ".join(f"({n}, {b}) {t:.5f}" for n, b, t in lanes[design]))
+
+    moved, ops, instructions, static = chunk_work(cfg0, fm, want, c,
+                                                  sass["new"])
     b = bound(moved, ops)
-    n = lens.shape[0]
-    phases = steps // engine.SWITCH_K
-    log(f"search_chunk N={n} B={B_LANES} ACAP={cfg0.acap}: device ms per "
-        f"launch {ms:.5f} (ACAP 1024: {ms_1k:.5f}); the call returned in "
-        f"{call_us:.0f} us and waited for nothing (sync debug mode); lanes' "
-        f"iterations: longest {longest}, mean {total / B_LANES:.1f}, all "
-        f"{total}, FM rows needed {rows}; "
-        f"{ms * 1e3 / longest:.4f} us per iteration of the longest lane; the "
-        f"phased kernels' loop of the same chunk, {phases} phases: "
-        f"{' + '.join(f'{k} {v:.5f}' for k, v in phased.items())} ms; the "
-        f"plain loop "
-        f"{plain_ms:.5f} ms in {plain_n} launches; bound {b['bound_ms']:.5f} "
-        f"({b['bound_by']}, {moved} bytes, operations estimated)")
+    longest = int(it.max())
+    log(f"search_chunk N={lens.shape[0]} ACAP={cfg0.acap} on "
+        f"{shape[256]['lanes']} resident lanes ({shape[256]['blocks_per_sm']}"
+        f" blocks an SM; ACAP 1024: {shape[1024]['lanes']}, "
+        f"{shape[1024]['blocks_per_sm']}): device ms per launch in turns "
+        f"{FIRST_TURNS} at ACAP 256 {turns[256]} (medians new "
+        f"{ms:.5f}, first version {med[256]['first']:.5f}, "
+        f"{med[256]['first'] / ms:.3f}x), at ACAP 1024 {turns[1024]} "
+        f"({med[1024]['first'] / med[1024]['new']:.3f}x); without the rows "
+        f"asked ahead {mode0:.5f}; the call returned in {call_us:.0f} us and "
+        f"waited for nothing (sync debug mode); the longest read {longest} "
+        f"iterations (the first version's longest lane {first_longest}), "
+        f"the longest lane {c['longest_lane']}, all {c['iterations']}, FM "
+        f"rows {c['rows']} ({c['e_fetches']} E-chain fetches); "
+        f"{ms * 1e3 / longest:.4f} us per iteration of the longest read "
+        f"(first: {med[256]['first'] * 1e3 / first_longest:.4f} of its "
+        f"longest lane); fallback {int(want[2].sum())} "
+        f"{cause_split(want[4], want[2])}; the phased kernels' loop "
+        f"{' + '.join(f'{k} {v:.5f}' for k, v in phased_ms.items())} ms; the "
+        f"plain loop's CUDA-event span {plain_ms:.5f} ms; bound "
+        f"{b['bound_ms']:.5f} ({b['bound_by']}, {moved} bytes, {ops} "
+        f"operations: {sass['new']['min_int']} integer instructions of a "
+        f"completed step at least x 32 x the iterations that are not a "
+        f"read's last); issue at least {issue_ms(instructions):.5f} ms "
+        f"({instructions} warp instructions), the step loop's static count "
+        f"{issue_ms(static):.5f} ms")
+    sweep = cap_sweep(fm, chunk, "smoke", plain=True)
     kernels.reset_launches()
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": None,
-            "phased_kernels_ms": sum(phased.values()), "_longest": longest}
+            "library_ms": None, "issue_ms": issue_ms(instructions),
+            "issue_static_ms": issue_ms(static),
+            "phased_kernels_ms": sum(phased_ms.values()),
+            "first_version_ms": med[256]["first"], "turns_ms": turns,
+            "acap1024_ms": med[1024]["new"],
+            "acap1024_first_version_ms": med[1024]["first"],
+            "no_prefetch_ms": mode0, "shape": shape, "sass": sass,
+            "longest_read": longest, "first_longest_lane": first_longest,
+            "counters": c, "fallback_by_cause": cause_split(want[4], want[2]),
+            "stages": stages, "lanes_ms": lanes, "cap_sweep": sweep,
+            "_longest": longest}
+
+
+def cap_sweep(fm, chunk: dict, label: str, plain: bool) -> list[dict]:
+    """K8 at every iter_cap x ACAP of SWEEP (`EngineConfig` through
+    `dataclasses.replace`; the module's defaults untouched) on a chunk:
+    bitwise equal to the plain loop (`plain`; over one lane a read, which
+    gives the same hits, flags and causes in the fewest steps) or to the
+    phased kernels' loop at the same setting; every read it keeps on the
+    card decoded (`engine._decode`) equal to `native_align_batch`'s hits
+    for it; its device ms, its fallback split by cause and its longest
+    read.  One dict a setting."""
+    import numpy as np
+    from ibwa_tpu_torch.align import engine
+    args, n = chunk["args"], len(chunk["seqs"])
+    out = []
+    for acap, cap in SWEEP:
+        cfg = dataclasses.replace(chunk["cfg"], iter_cap=cap, acap=acap)
+        t0 = time.perf_counter()
+        run = engine.run_search_plain if plain else engine.run_search_phased
+        want = run(cfg, fm, *args, n_lanes=n)
+        ref_s = time.perf_counter() - t0
+        _, (hits, nh, fb, _, cause, it, _) = hold_search_chunk(
+            fm, f"{label} iter_cap {cap} ACAP {acap}", cfg, args, n, want,
+            modes=(1,))
+        fb_np = fb.cpu().numpy()
+        decoded = [None] * n
+        engine._decode(hits.cpu().numpy(), nh.cpu().numpy(), fb_np,
+                       chunk["opt"], decoded, 0)
+        kept = np.nonzero(~fb_np)[0]
+        host = engine.native_align_batch(
+            chunk["fms"], [chunk["seqs"][i] for i in kept],
+            [chunk["rseqs"][i] for i in kept], chunk["opt"])
+        wrong = [int(i) for i, h in zip(kept, host) if decoded[i] != h]
+        if wrong:
+            raise AssertionError(f"{label} iter_cap {cap} ACAP {acap}: "
+                                 f"reads {wrong[:5]} kept on the card "
+                                 f"decode to other hits than the host's")
+        row = {"acap": acap, "iter_cap": cap,
+               "ms": time_search_chunk(cfg, fm, args, 4, 1),
+               "fallback": int(fb_np.sum()),
+               "fallback_share": float(fb_np.mean()),
+               "by_cause": cause_split(cause, fb),
+               "longest_read": int(it.max()), "kept": len(kept),
+               "reference": "plain loop" if plain else "phased kernels",
+               "reference_s": ref_s}
+        out.append(row)
+        log(f"cap sweep, {label} chunk, iter_cap {cap} ACAP {acap}: bitwise "
+            f"equal to the {row['reference']}'s ({ref_s:.1f} s), "
+            f"{len(kept)} reads kept on the card, each equal to the host "
+            f"search's hits; device ms {row['ms']:.5f}, longest read "
+            f"{row['longest_read']}, fallback {row['fallback']} "
+            f"({row['fallback_share']:.4f}) by cause {row['by_cause']}")
+    return out
 
 
 def check_chase(tables: dict, dev) -> dict:
@@ -1235,7 +1579,8 @@ def run_aln(args: list[str], out: pathlib.Path) -> dict:
 
 def profile_chunk(fms, fm, chunk: dict) -> None:
     """One warm 2,048-read chunk of the device search, as the engine runs
-    it (width pass, one `search_chunk` launch, one copy of the counters):
+    it (width pass, one `search_chunk` launch, one copy of the reads'
+    iteration counts):
     bare wall, then under the profiler its launches and device time by
     kind; beside it, in the same process, the loop of the phased kernels on
     the same chunk with the host clock around each of a phase's calls; the
@@ -1251,7 +1596,7 @@ def profile_chunk(fms, fm, chunk: dict) -> None:
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    hits, nh, fb, steps = run()
+    hits, nh, fb, steps, _ = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1402,7 +1747,8 @@ def run_aln_paths(fa, fq) -> tuple[dict, dict]:
             f"{spread([x['reads'] / x['search_s'] for x in runs])}; end to "
             f"end {spread([x['reads'] / x['wall_s'] for x in runs])}; device "
             f"reads {dev_reads}, overflow fallback {fb} "
-            f"({fb / max(dev_reads + fb, 1):.4f}), host share "
+            f"({fb / max(dev_reads + fb, 1):.4f}; by cause "
+            f"{r.get('fallback_by_cause')}), host share "
             f"{r.get('host_reads', 0)}, steps {r.get('iterations', 0)}")
     log(f".sai byte-identical to --engine native (device-only, hybrid) in "
         f"each of {ROUNDS} rounds; {n_hit}/{N_READS} reads with hits; "
@@ -2350,7 +2696,8 @@ def check_sharded(fm, chunk: dict, dev, rows: dict, ptxas: dict) -> dict:
     flat ones (w / bid / meta; hits, counts, flags and counters, with and
     without the step's rows asked ahead) at every n_idx, and against their
     plain versions over the same split table (`big_planes_plain` at every
-    n_idx; `run_search_plain`, whose rows come through the plain B8,
+    n_idx; `run_search_plain`, finished over B_LANES lanes: hits, counts,
+    flags, causes, steps; its rows come through the plain B8,
     `gather_rows_sharded`, at the largest n_idx only, untraced: a traced
     plain loop of ~330,000 launches takes ~90 s), bitwise; then K6 and K8
     timed in turns (MESH_TURNS), flat and split.  A row reports the
@@ -2365,8 +2712,7 @@ def check_sharded(fm, chunk: dict, dev, rows: dict, ptxas: dict) -> dict:
     pairs = {"flat": fm, **{n: shard_pair(fm, [dev] * n) for n in MESH_IDX}}
     widths = lambda f: engine.big_planes(cfg, f, seqs, lens, hs, ssq)
     flat_big = widths(fm)
-    flat_out = {mode: launch_chunk(cfg, fm, args, B_LANES, mode)
-                for mode in (1, 0)}
+    flat_out = {mode: launch_chunk(cfg, fm, args, mode) for mode in (1, 0)}
     as_int = lambda out: [t.to(torch.int64) for t in out]
     plain = {"width_pass": {}, "search_chunk": {}}
     seen = []
@@ -2377,24 +2723,21 @@ def check_sharded(fm, chunk: dict, dev, rows: dict, ptxas: dict) -> dict:
             engine.big_planes_plain(cfg, sp, seqs, lens, hs, ssq)), 1)[0]
         got = widths(sp)
         err = max(max_abs_err(got, flat_big), max_abs_err(got, want_big[-1]))
-        for mode in (1, 0):
-            out = launch_chunk(cfg, sp, args, B_LANES, mode)
-            err = max(err, max_abs_err(as_int(out), as_int(flat_out[mode])))
-        out_h, knh, kfb, counters = flat_out[1]
-        steps = counters.tolist()[1]
+        for mode in (1, 0):   # every output but the lanes' own counters
+            out = launch_chunk(cfg, sp, args, mode)
+            err = max(err, max_abs_err(as_int(out[:5]),
+                                       as_int(flat_out[mode][:5])))
         if n == MESH_IDX[-1]:
             out_plain = []
             plain["search_chunk"][n] = event_ms(lambda: out_plain.append(
                 engine.run_search_plain(cfg, sp, *args, n_lanes=B_LANES)), 1)
-            h, nh, fb, steps = out_plain[-1]
-            err = max(err, max_abs_err(
-                [engine.masked_hits(out_h.permute(1, 2, 0), knh, kfb), knh,
-                 kfb], [engine.masked_hits(h, nh, fb), nh, fb]))
-        if err or counters.tolist()[:2] != [0, steps]:
+            hold_search_chunk(sp, f"B8 at n_idx {n} against the plain loop "
+                              f"over the split table", cfg, args, B_LANES,
+                              out_plain[-1])
+        if err:
             raise AssertionError(
                 f"B8 at n_idx={n}: the sharded kernels differ from the flat "
-                f"ones or the plain versions (max abs err {err}; steps "
-                f"{counters.tolist()[:2]} vs {steps})")
+                f"ones or the plain versions (max abs err {err})")
         seen.append(f"n_idx {n} ({sp.shard_rows} rows a range)")
     log(f"B8: width_pass and search_chunk over the table split in "
         f"{', '.join(seen)} on {dev}: bitwise equal to the flat kernels "
@@ -2490,6 +2833,20 @@ def k5_text(row: dict, warp_us: float) -> str:
             f"({row['longest_walk']} x {warp_us:.3f} us)")
 
 
+def aln_summaries(obj, path: str = ""):
+    """(path, summary) of every device `aln` summary inside a report of
+    parity_scale (`aln_summary`: the ones that carry a fallback split)."""
+    if isinstance(obj, dict):
+        if "fallback_by_cause" in obj and "fallback_reads" in obj:
+            yield path, obj
+        for k, v in obj.items():
+            if k != "batches":
+                yield from aln_summaries(v, f"{path}/{k}" if path else str(k))
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from aln_summaries(v, f"{path}/{i}")
+
+
 def run_scale_phase(warp_us: float, rows: dict) -> dict:
     """Phase 4g: every configuration of `ibwa_tpu_torch/parity_scale.py`
     at full scale on the card (it raises on the first inequality), then
@@ -2497,7 +2854,8 @@ def run_scale_phase(warp_us: float, rows: dict) -> dict:
     version and the run's values, CUDA events, bounds by `walk_footprint`)
     and the width pass and the chunk search on the CLI path at ACAP 1024
     and 256 (device ms a launch from a profiler session around one
-    device-only `aln` of aln_options' reads, .sai byte-equal to native).
+    device-only `aln` of aln_options' reads, .sai byte-equal to native);
+    logs every device `aln`'s overflow fallback by cause.
     Adds those readings to the kernel table's rows; returns the launches
     of the configurations' commands."""
     import torch
@@ -2521,6 +2879,14 @@ def run_scale_phase(warp_us: float, rows: dict) -> dict:
             raise AssertionError(f"4g never launched {name}: {launches}")
     secs = {name: round(r["seconds"], 1) for name, r in res.items()}
     say(f"every configuration equal; seconds {secs}")
+    split = rows["search_chunk"]["scale_fallback_by_cause"] = {}
+    for path, st in aln_summaries(res):
+        split[path] = {"fallback": st["fallback_reads"],
+                       "device_reads": st["device_reads"],
+                       **st["fallback_by_cause"]}
+        say(f"aln {path}: overflow fallback {st['fallback_reads']} of "
+            f"{st['device_reads'] + st['fallback_reads']} device reads, by "
+            f"cause {st['fallback_by_cause']}")
 
     # K5 on repeat_pe's intervals, thousands of rows wide
     calls = res["repeat_pe"]["sampe"].pop("_calls")
@@ -2573,7 +2939,8 @@ def chunk_case(fa, fq, dev) -> tuple:
 
 
 def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
-                    rounds: int = ROUNDS) -> dict:
+                    sass: dict, rounds: int = ROUNDS,
+                    sweep: bool = True) -> dict:
     """Phase 4h: `ibwa_tpu_torch/index_3gbp.py` at `gbp` Gbp on the card
     (its 32-contig genome indexed in a child process; aln device-only,
     hybrid and native on both ends and the rates; sampe -R K5 against the
@@ -2582,7 +2949,10 @@ def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
     first 2,048 reads of end 1 bitwise against their plain versions
     (`big_planes_plain`, the plain loop), and both timed in turns with
     the smoke's chunk (LARGE_TURNS), beside their bounds; the latency
-    bounds at table (c)'s one-warp step (HBM).  Adds the readings to the
+    bounds at table (c)'s one-warp step (HBM); K8's fallback split by
+    cause, and with `sweep` the cap sweep on that chunk against the phased
+    kernels' loop (`cap_sweep`: the plain loop at every setting of the
+    sweep does not fit the smoke's time twice).  Adds the readings to the
     kernel table's rows as `large_table`; fails at the end if the index
     took more than the module's 16 GB of host memory; returns the launches
     of the module's commands."""
@@ -2638,11 +3008,11 @@ def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
     plain_run = lambda: engine.run_search_plain(cfg, fm, *args,
                                                 n_lanes=B_LANES)
     want = plain_run()
-    seen = hold_search_chunk(fm, f"the {gbp} Gbp table's chunk against the "
-                             f"plain loop", cfg, args, B_LANES, want)
-    counters = engine.search_chunk(cfg, fm, seqs, got, lens, md, hs, bad,
-                                   B_LANES)[3]
-    _, steps, longest, total, n_rows = counters.tolist()
+    seen, (*_, it, counters) = hold_search_chunk(
+        fm, f"the {gbp} Gbp table's chunk against the plain loop", cfg, args,
+        B_LANES, want)
+    c = dict(zip(engine.COUNTERS, counters.tolist()))
+    steps, longest, total = want[3], int(it.max()), c["iterations"]
     times = {name: {"width_pass": [], "search_chunk": []} for name in cases}
     for name in LARGE_TURNS:
         fm_t, ch = cases[name]
@@ -2653,7 +3023,7 @@ def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
         times[name]["search_chunk"].append(time_search_chunk(
             c_t, fm_t, a_t, 10, 1))
     w_moved, w_ops, fetches, chain = width_work(cfg, fm, got, args)
-    s_moved, s_ops = chunk_work(cfg, fm, want, total, n_rows)
+    s_moved, s_ops, s_ins, _ = chunk_work(cfg, fm, want, c, sass["new"])
     table = {"gbp": gbp, "seq_len": fm.seq_len,
              "table_bytes": nbytes(fm.blocks), "reads": lens.shape[0],
              "lanes": B_LANES, "acap": cfg.acap, "max_abs_err": err}
@@ -2662,8 +3032,10 @@ def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
              {"bases_fetched": fetches, "longest_chain": chain,
               "plain_ms": timed_ms(plain_w, 2)[0]}),
             ("search_chunk", s_moved, s_ops, longest,
-             {"steps": steps, "longest_lane": longest,
-              "lane_iterations": total, "fm_rows": n_rows,
+             {"steps": steps, "longest_read": longest,
+              "longest_lane": c["longest_lane"], "lane_iterations": total,
+              "fm_rows": c["rows"], "issue_ms": issue_ms(s_ins),
+              "fallback_by_cause": cause_split(want[4], want[2]),
               "plain_span_ms": event_ms(plain_run, 1)})):
         mine, smoke = times["large"][kernel], times["smoke"][kernel]
         rows[kernel]["large_table"] = r = {
@@ -2682,6 +3054,9 @@ def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
             + (f" to {engine.E_UNROLL * r['latency_bound_ms']:.5f}"
                if kernel == "search_chunk" else "") + f"; {extra}")
     say(f"search_chunk: {seen}")
+    if sweep:
+        rows["search_chunk"]["large_table"]["cap_sweep"] = cap_sweep(
+            fm, chunk, f"{gbp} Gbp", plain=False)
     del cases, fm, chunk, args, got, want
     gc.collect()
     torch.cuda.empty_cache()
@@ -2878,7 +3253,10 @@ def main(argv: list[str] | None = None) -> int:
         rows = {name: {} for name in ("width_pass", "search_chunk",
                                       "lf_walk")}
         launches = run_large_phase(large, probe_warp_us(dev), rows, fa, fq,
-                                   dev, rounds=1)
+                                   dev, sass_step_loop(
+                                       info["path"], int(os.environ.get(
+                                           "IBWA_DEV_INTV", "64")) >> 4),
+                                   rounds=1)
         log(f"launches of 4h (the large table's commands): {launches}; "
             f"all {time.perf_counter() - t_start:.0f} s")
         print(smi)
@@ -2901,11 +3279,14 @@ def main(argv: list[str] | None = None) -> int:
     rows = {"stack_update": check_stack(dev), **check_occ(fm, dev),
             "width_pass": check_width_pass(fm, chunk)}
     stamp("K1, K2, K6 checks")
-    rows["search_step"] = check_search_step(fm, chunk)
+    sass = sass_step_loop(info["path"], fm.wpb)
+    rows["search_step"] = check_search_step(fm, chunk, sass)
     stamp("search_step check")
     rows["lane_switch"], switch_cases = check_lane_switch(fm, chunk)
     stamp("lane_switch check")
-    rows["search_chunk"] = check_search_chunk(fm, chunk, switch_cases)
+    rows["search_chunk"] = check_search_chunk(fm, chunk, switch_cases, sass)
+    rows["search_chunk"]["ptxas"] = {e: v for e, v in ptxas.items()
+                                     if e.startswith("search_chunk")}
     stamp("search_chunk check")
     del switch_cases
     tables = {label: bench_chase.make_table_device(n, w, SEED, dev)
@@ -2956,13 +3337,18 @@ def main(argv: list[str] | None = None) -> int:
         f"{longest * warp_us['b'] / 1e3:.5f} ms; search_step "
         f"{engine.SWITCH_K} steps x 1 to {engine.E_UNROLL} dependent fetches "
         f"{step_lat:.5f} to {engine.E_UNROLL * step_lat:.5f} ms")
-    # a chunk launch is as long as its slowest lane
-    lane = rows["search_chunk"].pop("_longest")
-    rows["search_chunk"]["latency_bound_ms"] = lane * warp_us["b"] / 1e3
-    log(f"search_chunk latency bound: the longest lane's {lane} iterations "
+    # a chunk launch is as long as its longest read: every read has a lane
+    read = rows["search_chunk"].pop("_longest")
+    k8 = rows["search_chunk"]
+    k8["latency_bound_ms"] = read * warp_us["b"] / 1e3
+    log(f"search_chunk latency bound: the longest read's {read} iterations "
         f"x 1 to {engine.E_UNROLL} dependent fetches "
-        f"{lane * warp_us['b'] / 1e3:.5f} to "
-        f"{engine.E_UNROLL * lane * warp_us['b'] / 1e3:.5f} ms")
+        f"{k8['latency_bound_ms']:.5f} to "
+        f"{engine.E_UNROLL * k8['latency_bound_ms']:.5f} ms, "
+        f"{k8['latency_bound_ms'] / k8['ms']:.4f} to "
+        f"{engine.E_UNROLL * k8['latency_bound_ms'] / k8['ms']:.4f} of its "
+        f"{k8['ms']:.5f} ms; issue {k8['issue_ms']:.5f} ms, "
+        f"{k8['issue_ms'] / k8['ms']:.4f} of it")
 
     # ---- 4b. the walker on random rows (its launches on its path are
     # sampe's, 4d)
@@ -3033,7 +3419,8 @@ def main(argv: list[str] | None = None) -> int:
 
     # ---- 4h. a large table, counted on a line of their own
     t4 = time.perf_counter()
-    large_launches = run_large_phase(LARGE_GBP, warp_us, rows, fa, fq, dev)
+    large_launches = run_large_phase(LARGE_GBP, warp_us, rows, fa, fq, dev,
+                                     sass)
     log(f"launches of 4h (the large table's commands): {large_launches}; "
         f"4h {time.perf_counter() - t4:.0f} s; all phases "
         f"{time.perf_counter() - t_start:.0f} s")

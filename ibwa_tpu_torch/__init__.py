@@ -34,7 +34,9 @@ Kernels (CUDA C++ for sm_90a, built at first use by `kernels.py`):
   flush, load, park (replaces the `switch` closure of
   `engine_jax._run_search_persistent`)
 * `csrc/search_chunk.cu` — K8, a chunk's whole persistent search in one
-  launch (replaces the `while_loop` of `engine_jax._run_search_persistent`)
+  launch, every lane the card holds taking reads from a queue (replaces
+  the `while_loop` of `engine_jax._run_search_persistent`); its first
+  version `csrc/search_chunk_first.cu` is kept to be timed beside it
 * `csrc/extend_dp.cu` — K9, a batch of `bwasw`'s banded seed extensions,
   a warp a job (replaces the XLA scan `ibwa_tpu/ops/dp.py::_extend_scan`);
   `bwasw/dp_glue.py` hands it the native driver's batches

@@ -25,9 +25,10 @@ Port conventions:
     for CPU tensors only: `big_planes` (the width pass: `csrc/width_pass.cu`,
     whose occ query is K2's device code; plain `big_planes_plain`, torch
     ops plus one occ1_pair per base) and `search_chunk`
-    (`csrc/search_chunk.cu`: every lane's whole life in one launch, its
-    arena in shared memory, its scalars in registers, the reads' planes
-    and output rows worked on in place; its step stage is
+    (`csrc/search_chunk.cu`: every lane the card holds takes reads from a
+    queue, each read's whole search in the one launch, a lane's arena in
+    shared memory, its scalars in registers, the reads' planes and output
+    rows worked on in place; its step stage is
     `csrc/search_step.cuh`, whose stages 3 and 7 are K2's and K1's device
     code, its switch stage `csrc/lane_switch.cuh`).
   * The plain version of `search_chunk` is the phased loop,
@@ -40,8 +41,12 @@ Port conventions:
     launch per phase: no path of `aln` takes it there, the card's check
     holds `search_chunk` against it.
   * The card's path does not sync with the host between the launch of
-    `search_chunk` and the download of its results; `chunk_steps` is the
-    arithmetic by which the kernel reproduces the phased loop's step count.
+    `search_chunk` and the download of its results; `finish_chunk`
+    (`chunk_schedule`) gives the phased loop's step count from the reads'
+    own iteration counts, which the kernel writes.
+  * Every read at the host search carries why (FB_*): the plain step and
+    switch keep it per lane and read, the kernel per read, and
+    `TorchAlnEngine` counts it (`fallback_by_cause`).
   * Still torch ops on the main path: the allocations and uploads of a
     chunk, the final stack / slice of its outputs; `_decode` is numpy on
     the host.
@@ -87,6 +92,11 @@ PERSIST_N = 2048  # reads streamed through the lanes per dispatch
 E_UNROLL = 2      # exact-extension bases consumed per E pop
 ITER_CAP = 384    # pushes before a read is routed to the host search
 SWITCH_K = 16     # search steps between lane-switch phases
+# why a read went to the host search (its fb flag), in the plain step's
+# order where two fire in one step: csrc/search_step.cuh's kCause*, then
+# FB_BOUND for the reads that the phased loop's iteration bound sends there
+FB_NONE, FB_ITER_CAP, FB_ARENA, FB_HITS, FB_SEQNO, FB_BOUND = range(6)
+FB_CAUSES = ("iter_cap", "arena", "hits", "seqno", "bound")  # codes 1..5
 HOST_FRAC_INIT = 0.30  # starting host share of a batch (hybrid); adapts
                        # per batch; IBWA_HOST_FRAC fixes it
 HOST_CHUNK = 2048      # reads per native job
@@ -342,10 +352,13 @@ def big_planes(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, has_seed,
 
 
 def _search_step(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
-                 st: SearchState) -> SearchState:
+                 st: SearchState, cause: torch.Tensor | None = None
+                 ) -> SearchState:
     """One pop-expand step for every active lane (engine_jax._search_step
     without the dimer path).  seqs: uint8[N, 2, L] of the reads the lanes'
-    `rid`s index.  The hit planes hk/hl/hm are updated in place."""
+    `rid`s index.  The hit planes hk/hl/hm are updated in place, and so is
+    `cause` (int64[B], where given): the FB_* code of a lane whose fb flag
+    this step sets."""
     B = st.lens.shape[0]
     dev = st.lens.device
     rows = torch.arange(B, device=dev)
@@ -361,8 +374,9 @@ def _search_step(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
     act = act & ~over
     # heavy-tail cap: a read burning > ITER_CAP steps goes to the host
     lane_it = st.lane_it + act.to(I64)
-    fb = st.fb | (act & (lane_it > cfg.iter_cap))
-    act = act & (lane_it <= cfg.iter_cap)
+    capped = act & (lane_it > cfg.iter_cap)
+    fb = st.fb | capped
+    act = act & ~capped
 
     # ---- pop: the previous step's stack_update left it in pslot..pm2
     e_k, e_l, m1, m2 = st.pk, st.pl, st.pm1, st.pm2
@@ -560,6 +574,11 @@ def _search_step(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
         st.pslot, act, cv, ofs, kv, ck_, cl_, cm1, cm2,
         st.key, st.sk, st.sl, st.sm1, st.sm2)
     fb = fb | ovf
+    if cause is not None:   # the first of the step's causes, in its order
+        code = torch.where(capped, FB_ITER_CAP, torch.where(
+            hovf, FB_HITS, torch.where(seq_ovf.any(dim=1), FB_SEQNO,
+                                       torch.where(ovf, FB_ARENA, 0))))
+        cause.copy_(torch.where(code > 0, code, cause))
 
     return SearchState(
         rid=st.rid, lens=st.lens, has_seed=st.has_seed, lane_it=lane_it,
@@ -661,7 +680,8 @@ def _launch_search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs, st,
 
 
 def search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
-                 st: SearchState, n_steps: int) -> SearchState:
+                 st: SearchState, n_steps: int,
+                 cause: torch.Tensor | None = None) -> SearchState:
     """`n_steps` search steps of every lane.
 
     CPU tensors: `n_steps` calls of the plain `_search_step`.  CUDA
@@ -669,14 +689,18 @@ def search_steps(cfg: EngineConfig, fm: DeviceFmPair, seqs: torch.Tensor,
     `csrc/search_step.cuh` on a lane state kept in global memory between
     launches), which updates `st` in place; it expects what
     every state loaded or stepped by this module holds, `st.meta ==
-    _pack_meta(st.w, st.bid)` and the pop fields of the lane's arena."""
+    _pack_meta(st.w, st.bid)` and the pop fields of the lane's arena.
+    `cause` (CPU tensors only): as `_search_step`'s; the kernel keeps
+    none."""
     dev = fm.device
     if dev.type == "cpu":
         for _ in range(n_steps):
-            st = _search_step(cfg, fm, seqs, st)
+            st = _search_step(cfg, fm, seqs, st, cause)
         return st
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if cause is not None:
+        raise ValueError("search_steps: the kernel keeps no fallback cause")
     _launch_search_steps(cfg, fm, seqs, st, n_steps,
                          torch.cuda.current_stream(dev).cuda_stream)
     return st
@@ -793,6 +817,10 @@ class _Chunk:
                       for _ in range(3)]      # hm, hk, hl
         self.out_nh = torch.zeros(self.npad, dtype=I64, device=dev)
         self.out_fb = torch.zeros(self.npad, dtype=torch.bool, device=dev)
+        # the FB_* code of each lane's read and of each flushed read: the
+        # plain switch and step keep them, the phased kernels do not
+        self.cause = torch.zeros(self.B, dtype=I64, device=dev)
+        self.out_cause = torch.zeros(self.npad, dtype=I64, device=dev)
         self.st = _empty_lanes(cfg, self.B, dev)
         self._bind_counters(torch.tensor([self.N, 0], dtype=I64,
                                          device=dev))
@@ -821,6 +849,7 @@ class _Chunk:
         new.st = clone_state(self.st)
         new.out_h = [t.clone() for t in self.out_h]
         new.out_nh, new.out_fb = self.out_nh.clone(), self.out_fb.clone()
+        new.cause, new.out_cause = self.cause.clone(), self.out_cause.clone()
         new._bind_counters(torch.stack([self.remaining, self.st.it]))
         return new
 
@@ -849,6 +878,9 @@ class _Chunk:
             out[orow] = torch.where(valid[:, None], src, out[orow])
         self.out_nh[orow] = torch.where(valid, st.n_hits, self.out_nh[orow])
         self.out_fb[orow] = torch.where(valid, st.fb, self.out_fb[orow])
+        self.out_cause[orow] = torch.where(valid, self.cause,
+                                           self.out_cause[orow])
+        self.cause = torch.where(fin, 0, self.cause)
         self.remaining = self.remaining - valid.sum()
         st.rid = torch.where(fin, st.rid + self.B, st.rid)
         load = fin & (st.rid < N)
@@ -901,26 +933,31 @@ def _phased_loop(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, max_diff0,
     """The persistent search as a loop of phases (arguments and result as
     `run_search_persistent`): a switch phase, SWITCH_K steps, one look at
     the two counters.  `plain`: every stage in its plain version whatever
-    the device, else as the stage's entry point routes it."""
+    the device, else as the stage's entry point routes it (the phased
+    kernels on a card keep no fallback cause: cause None)."""
     widths = big_planes_plain if plain else big_planes
     ch = _Chunk(cfg, fm, widths(cfg, fm, seqs, lens, has_seed, seed_seqs),
                 lens, max_diff0, has_seed, bad, n_lanes)
+    kept = plain or fm.device.type == "cpu"
     while True:
         if plain:
             ch.switch_plain()
             for _ in range(SWITCH_K):
-                ch.st = _search_step(cfg, fm, seqs, ch.st)
+                ch.st = _search_step(cfg, fm, seqs, ch.st, ch.cause)
             left, steps = int(ch.remaining), int(ch.st.it)
         else:
             ch.switch()
-            ch.st = search_steps(cfg, fm, seqs, ch.st, SWITCH_K)
+            ch.st = search_steps(cfg, fm, seqs, ch.st, SWITCH_K,
+                                 cause=ch.cause if kept else None)
             left, steps = ch.counters()  # sync
         if left <= 0 or steps >= MAX_ITERS * 8:
             break
     N = ch.N
-    out_fb = ch.out_fb | (left > 0)  # iteration bound: all fall back
+    out_fb = ch.out_fb[:N] | (left > 0)  # iteration bound: all fall back
     hits = torch.stack(ch.out_h, dim=-1)[:N]
-    return hits, ch.out_nh[:N], out_fb[:N], steps
+    cause = (torch.where(out_fb & (ch.out_cause[:N] == 0), FB_BOUND,
+                         ch.out_cause[:N]) if kept else None)
+    return hits, ch.out_nh[:N], out_fb, steps, cause
 
 
 def run_search_phased(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
@@ -931,7 +968,8 @@ def run_search_phased(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
     result as `run_search_persistent`; beyond `n_hits` a read's hit row
     holds the stale words of its lane.  On CPU tensors this is the plain
     version of `search_chunk`; on CUDA tensors every phase is one
-    `lane_switch` and one `search_steps` launch."""
+    `lane_switch` and one `search_steps` launch, and the result's cause is
+    None (those kernels keep none)."""
     return _phased_loop(cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs,
                         bad, n_lanes, plain=False)
 
@@ -954,10 +992,10 @@ def masked_hits(hits, n_hits, fb):
     return torch.where(keep[:, :, None], hits, 0)
 
 
-def chunk_steps(iters, bad, n_lanes: int, switch_k: int,
-                bound: int = MAX_ITERS * 8) -> int:
-    """The step count of the phased loop over a chunk, from each read's
-    own iterations: the arithmetic of `csrc/search_chunk.cu`'s clock.
+def chunk_schedule(iters, bad, n_lanes: int, switch_k: int,
+                   bound: int = MAX_ITERS * 8) -> tuple[int, np.ndarray]:
+    """The phased loop over a chunk, from each read's own iterations: its
+    step count, and which reads it flushes before its iteration bound.
 
     iters int[N]: the iteration of read r (1-based, counted from its load)
     in which its `done` / `fb` flag is set; bad bool[N]: reads that are
@@ -966,57 +1004,68 @@ def chunk_steps(iters, bad, n_lanes: int, switch_k: int,
     switch that sees its flag, at t + switch_k * max(1, ceil(iters /
     switch_k)), where the lane's next read is loaded.  The loop runs the
     steps of the phase whose switch flushed the last read, and no phase
-    from `bound` steps on: a lane whose flush would fall there leaves the
-    loop to end at the bound."""
+    from `bound` steps on: a read whose flush would fall there is never
+    flushed, and the loop ends at the bound.  Returns (steps, flushed
+    bool[N])."""
     j = np.where(np.asarray(bad), 0, np.asarray(iters, dtype=np.int64))
     phases = np.maximum(1, -(-j // switch_k))
     pad = -len(j) % n_lanes
-    per_lane = np.concatenate([phases, np.zeros(pad, np.int64)]).reshape(
-        -1, n_lanes).sum(axis=0)
-    last_flush = int(per_lane.max()) * switch_k
+    flush = (np.cumsum(np.concatenate([phases, np.zeros(pad, np.int64)])
+                       .reshape(-1, n_lanes), axis=0).reshape(-1)[:len(j)]
+             * switch_k)
     t_end = -(-bound // switch_k) * switch_k
-    return t_end if last_flush >= t_end else last_flush + switch_k
+    flushed = flush < t_end
+    if not flushed.all():
+        return t_end, flushed
+    return int(flush.max()) + switch_k, flushed
+
+
+def chunk_steps(iters, bad, n_lanes: int, switch_k: int,
+                bound: int = MAX_ITERS * 8) -> int:
+    """The step count of the phased loop over a chunk (`chunk_schedule`'s
+    first half)."""
+    return chunk_schedule(iters, bad, n_lanes, switch_k, bound)[0]
 
 
 class _ChunkArgs(ctypes.Structure):
     """The launch arguments of `ibwa_search_chunk`, field for field the
-    struct IbwaChunkArgs of csrc/search_chunk.cu: the chunk's outputs and
-    counters, the per-read arrays and planes, the `_SearchCfg`, the clock's
-    end and the lane, read and phase sizes."""
+    struct IbwaChunkArgs of csrc/search_chunk.cu: the chunk's outputs,
+    counters and stage clocks, the per-read arrays and planes, the
+    `_SearchCfg`, a read's iteration cap, the read count and a cap on the
+    grid."""
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
-            "out_hm", "out_hk", "out_hl", "out_nh", "out_fb", "counters",
-            "read_lens", "read_max_diff", "read_has_seed", "read_bad",
-            "big_w", "big_bid", "big_meta")]
-        + [("c", _SearchCfg), ("t_end", ctypes.c_int64)]
-        + [(name, ctypes.c_int) for name in ("B", "N", "switch_k")])
+            "out_hm", "out_hk", "out_hl", "out_nh", "out_fb", "out_it",
+            "out_cause", "counters", "prof", "read_lens", "read_max_diff",
+            "read_has_seed", "read_bad", "big_w", "big_bid", "big_meta")]
+        + [("c", _SearchCfg), ("it_cap", ctypes.c_int64),
+           ("N", ctypes.c_int), ("max_blocks", ctypes.c_int)])
 
 
-N_COUNTERS = 5   # search_chunk's counters, as its source lists them
+# search_chunk's counters, as its source lists them
+COUNTERS = ("taken", "flushed", "longest_lane", "iterations", "rows",
+            *FB_CAUSES[:4], "e_fetches")
+N_COUNTERS = len(COUNTERS)
+# the step's stages the profiling mode clocks, as search_step.cuh's kSt*
+STAGES = ("decode", "occ4", "hits", "e_chain", "children", "prefetch",
+          "commit")
+N_STAGES = len(STAGES)
 
 
-def _launch_search_chunk(cfg: EngineConfig, fm: DeviceFmPair, seqs, big,
-                         lens, max_diff0, has_seed, bad, n_lanes: int,
-                         stream: int, mode: int = 1):
-    """Check the tensors the kernel is given, allocate its outputs and
-    launch `ibwa_search_chunk` on them.  `mode` 1 is the step the engine
-    runs; 0 is the same step without the next pop's rows asked for ahead,
-    which only a measurement beside the other calls for."""
+def _it_cap() -> int:
+    """The phased loop's iteration bound, rounded up to a phase: no read
+    runs further (K8's cap on a read's iterations)."""
+    return -(-(MAX_ITERS * 8) // SWITCH_K) * SWITCH_K
+
+
+def _chunk_args(cfg: EngineConfig, fm: DeviceFmPair, seqs, big, lens,
+                max_diff0, has_seed, bad, outs: dict, max_blocks: int = 0):
+    """Check the tensors a K8 launch is given and build its `_ChunkArgs`;
+    `outs` maps the output fields to their tensors (zero on entry)."""
     dev, N = fm.device, lens.shape[0]
     P = cfg.L + cfg.SL + 2
-    out_h = torch.zeros(3, N, HCAP, dtype=I64, device=dev)   # hm, hk, hl
-    out_nh = torch.zeros(N, dtype=I64, device=dev)
-    out_fb = torch.zeros(N, dtype=torch.bool, device=dev)
-    counters = torch.zeros(N_COUNTERS, dtype=I64, device=dev)
-    counters[:1].fill_(N)   # on the card: an upload would wait for it
     named = {
-        "out_hm": (out_h[0], I64, (N, HCAP)),
-        "out_hk": (out_h[1], I64, (N, HCAP)),
-        "out_hl": (out_h[2], I64, (N, HCAP)),
-        "out_nh": (out_nh, I64, (N,)),
-        "out_fb": (out_fb, torch.bool, (N,)),
-        "counters": (counters, I64, (N_COUNTERS,)),
         "read_lens": (lens, I64, (N,)),
         "read_max_diff": (max_diff0, I64, (N,)),
         "read_has_seed": (has_seed, torch.bool, (N,)),
@@ -1026,96 +1075,216 @@ def _launch_search_chunk(cfg: EngineConfig, fm: DeviceFmPair, seqs, big,
         "big_meta": (big[2], I64, (N, 2, P))}
     for name, (t, dtype, shape) in named.items():
         _check_tensor("search_chunk", name, t, dev, dtype, shape)
-    if n_lanes < 1 or seqs.shape[0] != N:
-        raise ValueError(f"search_chunk: {n_lanes} lanes, {N} reads, "
-                         f"{seqs.shape[0]} rows of bases")
-    args = _ChunkArgs(
+    if seqs.shape[0] != N or N < 1:
+        raise ValueError(f"search_chunk: {N} reads, {seqs.shape[0]} rows of "
+                         "bases")
+    return _ChunkArgs(
         **{name: t.data_ptr() for name, (t, _, _) in named.items()},
+        **{name: (t.data_ptr() if t is not None else None)
+           for name, t in outs.items()},
         c=_search_cfg("search_chunk", cfg, fm, seqs, split_ok=True),
-        t_end=-(-(MAX_ITERS * 8) // SWITCH_K) * SWITCH_K, B=n_lanes, N=N,
-        switch_k=SWITCH_K)
+        it_cap=_it_cap(), N=N, max_blocks=max_blocks)
+
+
+def _launch_search_chunk(cfg: EngineConfig, fm: DeviceFmPair, seqs, big,
+                         lens, max_diff0, has_seed, bad, stream: int,
+                         mode: int = 1, max_blocks: int = 0):
+    """Allocate K8's outputs and launch `ibwa_search_chunk` on them.
+    `mode` 1 is the step the engine runs; 0 is the same step without the
+    next pop's rows asked for ahead, and 2 the same with its stages'
+    clocks kept, which only a measurement calls for.  `max_blocks` > 0
+    caps the grid (the tests' and the profile's), else it is every block
+    the card holds.
+
+    Returns (out_h int64[3, N, HCAP] as (meta, k, l) planes, n_hits
+    int64[N], fb bool[N], it int32[N], cause int32[N], counters
+    int64[N_COUNTERS]) and, in mode 2, the stage clocks int64[lanes,
+    N_STAGES] after them."""
+    dev, N = fm.device, lens.shape[0]
+    out_h = torch.zeros(3, N, HCAP, dtype=I64, device=dev)   # hm, hk, hl
+    outs = {"out_hm": out_h[0], "out_hk": out_h[1], "out_hl": out_h[2],
+            "out_nh": torch.zeros(N, dtype=I64, device=dev),
+            "out_fb": torch.zeros(N, dtype=torch.bool, device=dev),
+            "out_it": torch.zeros(N, dtype=torch.int32, device=dev),
+            "out_cause": torch.zeros(N, dtype=torch.int32, device=dev),
+            "counters": torch.zeros(N_COUNTERS, dtype=I64, device=dev),
+            "prof": None}
+    if mode == 2:
+        lanes = search_chunk_shape(cfg, fm, seqs, big, lens, max_diff0,
+                                   has_seed, bad, mode, max_blocks)["lanes"]
+        outs["prof"] = torch.zeros(lanes, N_STAGES, dtype=I64, device=dev)
+    args = _chunk_args(cfg, fm, seqs, big, lens, max_diff0, has_seed, bad,
+                       outs, max_blocks)
     name = "search_chunk_sharded" if args.c.shards.n else "search_chunk"
     rc = kernels.lib().ibwa_search_chunk(ctypes.byref(args), mode, stream)
     kernels.check(rc, name)
     kernels.launches[name] += 1
-    return out_h, out_nh, out_fb, counters
+    got = (out_h, outs["out_nh"], outs["out_fb"], outs["out_it"],
+           outs["out_cause"], outs["counters"])
+    return got + (outs["prof"],) if mode == 2 else got
+
+
+def search_chunk_shape(cfg: EngineConfig, fm: DeviceFmPair, seqs, big, lens,
+                       max_diff0, has_seed, bad, mode: int = 1,
+                       max_blocks: int = 0) -> dict:
+    """The launch `_launch_search_chunk` makes on these inputs, launching
+    nothing: blocks an SM (the occupancy the card reports at this arena
+    size), SMs, blocks, lanes and shared bytes a block."""
+    args = _chunk_args(cfg, fm, seqs, big, lens, max_diff0, has_seed, bad,
+                       {}, max_blocks)
+    out = (ctypes.c_int * 4)()
+    kernels.check(kernels.lib().ibwa_search_chunk_shape(
+        ctypes.byref(args), mode, out), "search_chunk_shape")
+    per_sm, sms, grid, smem = list(out)
+    return {"blocks_per_sm": per_sm, "sms": sms, "blocks": grid,
+            "lanes": grid * 4, "smem": smem}
+
+
+class _ChunkFirstArgs(ctypes.Structure):
+    """The launch arguments of `ibwa_search_chunk_first`, field for field
+    the struct IbwaChunkFirstArgs of csrc/search_chunk_first.cu."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "out_hm", "out_hk", "out_hl", "out_nh", "out_fb", "counters",
+            "read_lens", "read_max_diff", "read_has_seed", "read_bad",
+            "big_w", "big_bid", "big_meta")]
+        + [("c", _SearchCfg), ("t_end", ctypes.c_int64)]
+        + [(name, ctypes.c_int) for name in ("B", "N", "switch_k")]
+        + [("prof", ctypes.c_void_p)])
+
+
+def _launch_search_chunk_first(cfg: EngineConfig, fm: DeviceFmPair, seqs,
+                               big, lens, max_diff0, has_seed, bad,
+                               n_lanes: int, stream: int, mode: int = 1):
+    """K8's first version (`csrc/search_chunk_first.cu`: lane b takes
+    reads b, b + n_lanes, ...), which nothing but a measurement beside the
+    redesign launches; `mode` as `_launch_search_chunk`'s.  Returns
+    (out_h, n_hits, fb, counters int64[5]: reads left, steps, the longest
+    lane's iterations, all iterations, FM rows), the step count the
+    kernel's own clock, and in mode 2 the stage clocks int64[n_lanes,
+    N_STAGES] after them."""
+    dev, N = fm.device, lens.shape[0]
+    out_h = torch.zeros(3, N, HCAP, dtype=I64, device=dev)
+    out_nh = torch.zeros(N, dtype=I64, device=dev)
+    out_fb = torch.zeros(N, dtype=torch.bool, device=dev)
+    counters = torch.zeros(5, dtype=I64, device=dev)
+    counters[:1].fill_(N)
+    prof = (torch.zeros(n_lanes, N_STAGES, dtype=I64, device=dev)
+            if mode == 2 else None)
+    cfg_args = _chunk_args(cfg, fm, seqs, big, lens, max_diff0, has_seed,
+                           bad, {})
+    args = _ChunkFirstArgs(
+        out_hm=out_h[0].data_ptr(), out_hk=out_h[1].data_ptr(),
+        out_hl=out_h[2].data_ptr(), out_nh=out_nh.data_ptr(),
+        out_fb=out_fb.data_ptr(), counters=counters.data_ptr(),
+        **{name: getattr(cfg_args, name) for name in (
+            "read_lens", "read_max_diff", "read_has_seed", "read_bad",
+            "big_w", "big_bid", "big_meta")},
+        c=cfg_args.c, t_end=_it_cap(), B=n_lanes, N=N, switch_k=SWITCH_K,
+        prof=prof.data_ptr() if prof is not None else None)
+    rc = kernels.lib().ibwa_search_chunk_first(ctypes.byref(args), mode,
+                                               stream)
+    kernels.check(rc, "search_chunk_first")
+    kernels.launches["search_chunk_first"] += 1
+    got = (out_h, out_nh, out_fb, counters)
+    return got + (prof,) if mode == 2 else got
 
 
 def search_chunk(cfg: EngineConfig, fm: DeviceFmPair, seqs, big, lens,
-                 max_diff0, has_seed, bad, n_lanes: int):
+                 max_diff0, has_seed, bad):
     """The whole persistent search of a chunk over its width planes `big`
     (`big_planes`), in ONE launch of the kernel `csrc/search_chunk.cu` (its
-    sharded instantiation, B8, when the table is split): CUDA tensors only (the plain version is the phased loop,
-    `run_search_phased`).  THE THREE PLANES OF `big` ARE UPDATED IN PLACE:
-    a lane works on its read's rows where they are, so a second search
-    needs them computed again.
+    sharded instantiation, B8, when the table is split): every lane the
+    card holds takes reads from a queue.  CUDA tensors only (the plain
+    version is the phased loop, `run_search_phased`).  THE THREE PLANES OF
+    `big` ARE UPDATED IN PLACE: a lane works on its read's rows where they
+    are, so a second search needs them computed again.
 
-    Returns (out_h int64[3, N, HCAP] as (meta, k, l) planes, n_hits
-    int64[N], fb bool[N], counters int64[N_COUNTERS]), all on the card:
-    nothing here waits for the kernel.  Beyond `n_hits` a hit row is zero.
-    counters = reads left unflushed, steps, the longest lane's iterations,
-    all lanes' iterations, the FM rows their steps needed."""
+    Returns `_launch_search_chunk`'s (out_h, n_hits, fb, it, cause,
+    counters), all on the card: nothing here waits for the kernel.  Beyond
+    `n_hits` a hit row is zero; `it` is each read's own iteration count,
+    from which `chunk_schedule` gives the phased loop's step count."""
     dev = fm.device
     if dev.type != "cuda":
         raise ValueError(f"search_chunk: unsupported device {dev}")
     return _launch_search_chunk(
-        cfg, fm, seqs, big, lens, max_diff0, has_seed, bad, n_lanes,
+        cfg, fm, seqs, big, lens, max_diff0, has_seed, bad,
         torch.cuda.current_stream(dev).cuda_stream)
 
 
 def launch_search(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
                   max_diff0, has_seed, seed_seqs, bad, n_lanes: int):
     """The first half of `run_search_persistent`: start the search of a
-    chunk and return (hits, n_hits, fb, counters) for `collect_search`.
+    chunk and return (hits, n_hits, fb, steps or it, cause, n_lanes) for
+    `collect_search`.
 
     CUDA tensors: `big_planes` (one launch) and `search_chunk` (one
-    launch); nothing here waits for the card, and counters is
-    search_chunk's, on the card.  CPU tensors: the phased loop,
-    `run_search_phased`, done when this returns; counters = (0 reads
-    left, its steps)."""
+    launch), whose outputs these are, `it` its reads' iteration counts on
+    the card; nothing here waits for the card.  CPU tensors: the phased
+    loop, `run_search_phased`, done when this returns, with its steps."""
     dev = fm.device
     if dev.type == "cpu":
-        hits, n_hits, fb, steps = run_search_phased(
-            cfg, fm, seqs, lens, max_diff0, has_seed, seed_seqs, bad,
-            n_lanes)
-        return hits, n_hits, fb, torch.tensor([0, steps])
+        return (*run_search_phased(cfg, fm, seqs, lens, max_diff0, has_seed,
+                                   seed_seqs, bad, n_lanes), n_lanes)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     big = big_planes(cfg, fm, seqs, lens, has_seed, seed_seqs)
-    out_h, n_hits, fb, counters = search_chunk(
-        cfg, fm, seqs, big, lens, max_diff0, has_seed, bad, n_lanes)
-    return out_h.permute(1, 2, 0), n_hits, fb, counters
+    out_h, n_hits, fb, it, cause, _ = search_chunk(
+        cfg, fm, seqs, big, lens, max_diff0, has_seed, bad)
+    return out_h.permute(1, 2, 0), n_hits, fb, it, cause, n_lanes
+
+
+def finish_chunk(hits, n_hits, fb, it, cause, n_lanes: int):
+    """K8's outputs as the phased loop over `n_lanes` lanes gives them
+    (`run_search_persistent`'s result): its step count from the reads' own
+    iterations (`chunk_schedule`; the copy of `it` to the host waits for
+    the kernel), and where the loop's iteration bound cuts it, every read
+    to the host search and the reads it would not have flushed with no
+    hits and no cause; then FB_BOUND for every read at the host without
+    one."""
+    steps, flushed = chunk_schedule(it.cpu().numpy(),
+                                    np.zeros(it.shape[0], bool), n_lanes,
+                                    SWITCH_K, MAX_ITERS * 8)
+    cause = cause.to(I64)
+    if not flushed.all():
+        keep = torch.from_numpy(flushed).to(n_hits.device)
+        n_hits = torch.where(keep, n_hits, 0)
+        cause = torch.where(keep, cause, 0)
+        fb = torch.ones_like(fb)
+    cause = torch.where(fb & (cause == 0), FB_BOUND, cause)
+    return hits, n_hits, fb, steps, cause
 
 
 def collect_search(launched):
-    """The second half of `run_search_persistent`: read the counters of a
-    `launch_search` (on CUDA tensors the copy to the host waits for the
-    chunk's kernel) and apply the iteration bound.  Returns (hits, n_hits,
-    fb, steps) as `run_search_persistent`."""
-    hits, n_hits, fb, counters = launched
-    left, steps = counters.tolist()[:2]  # sync
-    if left > 0:  # iteration bound: all fall back
-        fb = torch.ones_like(fb)
-    return hits, n_hits, fb, steps
+    """The second half of `run_search_persistent`: finish a
+    `launch_search` (on CUDA tensors `finish_chunk`, whose copy to the host
+    is the chunk's only sync).  Returns (hits, n_hits, fb, steps, cause) as
+    `run_search_persistent`."""
+    if torch.is_tensor(launched[3]):
+        return finish_chunk(*launched)
+    return launched[:5]
 
 
 def run_search_persistent(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens,
                           max_diff0, has_seed, seed_seqs, bad,
                           n_lanes: int):
-    """Persistent-lane scheduler (engine_jax._run_search_persistent):
-    n_lanes lanes stream through the N reads of a chunk, lane b taking
-    reads b, b + B, ...; a lane whose read is done, or routed to the host
-    search, flushes its hits and loads its next read.
+    """Persistent-lane scheduler (engine_jax._run_search_persistent) over
+    n_lanes lanes: lane b takes reads b, b + B, ...; a lane whose read is
+    done, or routed to the host search, flushes its hits and loads its
+    next read.  That schedule gives the result's step count; on a card the
+    search itself runs on every lane the card holds (`search_chunk`).
 
     seqs uint8[N, 2, L], seed_seqs uint8[N, 2, SL], lens / max_diff0
     int64[N], has_seed / bad bool[N], all on fm's device.  Returns (hits
     int64[N, HCAP, 3] as (meta, k, l), n_hits int64[N], fb bool[N],
-    steps); `hits[r, n_hits[r]:]` is not part of the result.
+    steps, cause int64[N], each read's FB_* code); `hits[r, n_hits[r]:]`
+    is not part of the result.
 
     `launch_search` then `collect_search`.  CPU tensors: the phased loop,
     `run_search_phased`.  CUDA tensors: `big_planes` (one launch),
-    `search_chunk` (one launch), then one copy of the counters to the
-    host, the only sync."""
+    `search_chunk` (one launch), then one copy of the reads' iteration
+    counts to the host, the only sync."""
     return collect_search(launch_search(cfg, fm, seqs, lens, max_diff0,
                                         has_seed, seed_seqs, bad, n_lanes))
 
@@ -1366,9 +1535,12 @@ class TorchAlnEngine:
         self.dfm, self.device = self.dfms[0], self.dfms[0].device
         self.streams = entry_streams(self.dfms)
         # `batches`: one record a batch (its reads, host share, overflow
-        # fallback and arena size), in the order the batches came
+        # fallback, its split by cause, and arena size), in the order the
+        # batches came; `fallback_by_cause` the split over all batches
         self.stats = {"device_reads": 0, "fallback_reads": 0,
-                      "host_reads": 0, "iterations": 0, "batches": []}
+                      "host_reads": 0, "iterations": 0,
+                      "fallback_by_cause": dict.fromkeys(FB_CAUSES, 0),
+                      "batches": []}
         self.host_frac = float(os.environ.get("IBWA_HOST_FRAC",
                                               HOST_FRAC_INIT))
         # an explicit env share is FIXED (no adaptation)
@@ -1452,15 +1624,18 @@ class TorchAlnEngine:
 
         fb_jobs = []
         n_fb = 0
+        by_cause = np.zeros(len(FB_CAUSES) + 1, np.int64)
         for parts in pending:
             chunk_steps_max = 0
             for lo, d, launched in parts:
                 with on_stream(self.streams[d]):
-                    harr, n_hits, fb, steps = collect_search(launched)
+                    harr, n_hits, fb, steps, cause = collect_search(launched)
                     harr = harr.cpu().numpy()
                     nh = n_hits.cpu().numpy()
                     fb = fb.cpu().numpy()
+                    cause = cause.cpu().numpy()
                 chunk_steps_max = max(chunk_steps_max, steps)
+                by_cause += np.bincount(cause[fb], minlength=len(by_cause))
                 chunk_fb = np.nonzero(fb)[0]
                 if len(chunk_fb):
                     idxs = [lo + int(b) for b in chunk_fb]
@@ -1493,9 +1668,13 @@ class TorchAlnEngine:
             f_star = min(max(want / n_reads, 0.02), 0.85)
             self.host_frac = 0.5 * self.host_frac + 0.5 * f_star
         self.stats["host_frac"] = round(self.host_frac, 3)
+        causes = dict(zip(FB_CAUSES, by_cause[1:].tolist()))
+        for name, n in causes.items():
+            self.stats["fallback_by_cause"][name] += n
         self.stats["batches"].append({
             "reads": n_reads, "host_reads": n_host, "fallback_reads": n_fb,
-            "host_share": n_host / n_reads, "acap": cfg.acap})
+            "host_share": n_host / n_reads, "acap": cfg.acap,
+            "fallback_by_cause": causes})
         return out  # type: ignore[return-value]
 
 

@@ -57,8 +57,8 @@ def aln_to_stream(prefix: str, fq_path: str, opt: GapOpt, out: BinaryIO,
     """Align every read of `fq_path` against the index at `prefix` and
     write the .sai stream to `out`; returns the read count.  The torch
     engine prints a line a batch (its host share, overflow fallback and
-    arena size); the run ends with an `[aln] stats {json}` line on
-    stderr."""
+    its split by cause, and arena size); the run ends with an `[aln]
+    stats {json}` line on stderr."""
     if engine not in ("torch", "native", "ref"):
         raise ValueError(f"unknown engine {engine!r}")
     fms = (FmIndex(load_index(prefix, 0)), FmIndex(load_index(prefix, 1)))
@@ -91,8 +91,10 @@ def aln_to_stream(prefix: str, fq_path: str, opt: GapOpt, out: BinaryIO,
                 print(f"[aln] batch {len(eng.stats['batches'])}: "
                       f"{b['reads']} reads, host share "
                       f"{b['host_share']:.4f} ({b['host_reads']} reads), "
-                      f"overflow fallback {b['fallback_reads']}, ACAP "
-                      f"{b['acap']}", file=sys.stderr)
+                      f"overflow fallback {b['fallback_reads']} ("
+                      + ", ".join(f"{k} {v}" for k, v in
+                                  b["fallback_by_cause"].items())
+                      + f"), ACAP {b['acap']}", file=sys.stderr)
     finally:
         if eng is not None:
             eng.close()

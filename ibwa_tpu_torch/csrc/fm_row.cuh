@@ -28,6 +28,7 @@
 #define IBWA_FM_ROW_CUH
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace ibwa_fm {
@@ -149,24 +150,106 @@ struct OccRow {
   bool full;     // k == seq_len: every count is L2[c + 1] - L2[c]
 };
 
-// Locate and fetch the row of bound k on `strand` (rows of strand 1 follow
-// the n_blk rows of strand 0) from the row source `src`: skip the sentinel
-// row at `prim`, clamp to the last base and the last block.  The load starts
+// Where bound k is in the table: skip the sentinel row at `prim`, clamp to
+// the last base and the last block.  Sets o's off / neg / full and returns
+// k's block.
+template <int WPB>
+__device__ __forceinline__ uint32_t occ_block(uint32_t k, uint32_t prim,
+                                              uint32_t seq_len,
+                                              uint32_t n_blk,
+                                              OccRow<WPB>& o) {
+  constexpr int shift = WPB == 2 ? 5 : WPB == 4 ? 6 : 7;  // log2(intv)
+  uint32_t kk = k - (k >= prim ? 1u : 0u);
+  kk = min(kk, seq_len > 0 ? seq_len - 1u : 0u);
+  o.off = kk & ((1u << shift) - 1u);
+  o.neg = k == kNeg1;
+  o.full = k == seq_len;
+  return min(kk >> shift, n_blk - 1u);
+}
+
+// The address of the row of bound k on `strand` (rows of strand 1 follow
+// the n_blk rows of strand 0) in the row source `src` (occ_block).
+template <int WPB, class Rows>
+__device__ __forceinline__ const uint32_t* locate_occ_row(
+    const Rows& src, uint32_t k, uint32_t prim, uint32_t seq_len,
+    uint32_t n_blk, uint32_t strand, OccRow<WPB>& o) {
+  const uint32_t blk = occ_block<WPB>(k, prim, seq_len, n_blk, o);
+  return src.template row<4 + WPB>((uint64_t)strand * n_blk + blk);
+}
+
+// Locate and fetch the row of bound k (locate_occ_row).  The load starts
 // here and is not waited for, so a caller that fetches the two bounds of an
 // interval before it counts either has both loads in flight.
 template <int WPB, class Rows>
 __device__ __forceinline__ void fetch_occ_row(
     const Rows& src, uint32_t k, uint32_t prim,
     uint32_t seq_len, uint32_t n_blk, uint32_t strand, OccRow<WPB>& o) {
-  constexpr int shift = WPB == 2 ? 5 : WPB == 4 ? 6 : 7;  // log2(intv)
-  uint32_t kk = k - (k >= prim ? 1u : 0u);
-  kk = min(kk, seq_len > 0 ? seq_len - 1u : 0u);
-  const uint32_t blk = min(kk >> shift, n_blk - 1u);
-  o.off = kk & ((1u << shift) - 1u);
-  o.neg = k == kNeg1;
-  o.full = k == seq_len;
-  load_row<4 + WPB>(
-      src.template row<4 + WPB>((uint64_t)strand * n_blk + blk), o.r);
+  load_row<4 + WPB>(locate_occ_row<WPB>(src, k, prim, seq_len, n_blk,
+                                        strand, o), o.r);
+}
+
+// An asynchronous copy of BYTES (4, 8 or 16, aligned so) from global to
+// shared memory (cp.async: the data goes to shared memory without passing
+// through registers, and the thread goes on), and the wait for every copy
+// this thread started.  A host build (the CPU stand-in) copies at once.
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(BYTES));
+#else
+  memcpy(dst, src, BYTES);
+#endif
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Words of shared memory a warp needs for the two rows of an interval
+// asked for ahead (prefetch_pair), at the widest rows.
+constexpr int kPairWords = 2 * (4 + 8);
+
+// Ask for the rows of the bounds k0 and k1 on `strand` into `buf`
+// ([2][4 + WPB] words of shared memory, 16-byte aligned), a few threads of
+// the warp each copying a 16-byte piece (8 at intv 32, whose 24 B rows are
+// only 8-byte aligned); no register holds them meanwhile.  Before anything
+// reads buf, every thread calls copy_async_wait() and the warp meets at a
+// __syncwarp(); take_pair then reads them as fetch_occ_row would have.
+template <int WPB, class Rows>
+__device__ __forceinline__ void prefetch_pair(
+    const Rows& src, uint32_t k0, uint32_t k1, uint32_t prim,
+    uint32_t seq_len, uint32_t n_blk, uint32_t strand, uint32_t* buf,
+    int lane) {
+  constexpr int kRow = 4 + WPB;
+  constexpr int kPiece = kRow % 4 == 0 ? 16 : 8;  // bytes a copy
+  constexpr int kPieces = kRow * 4 / kPiece;      // copies a row
+  if (lane < 2 * kPieces) {
+    const int r = lane / kPieces, c = lane % kPieces;
+    OccRow<WPB> o;
+    const uint32_t* row = locate_occ_row<WPB>(src, r ? k1 : k0, prim,
+                                              seq_len, n_blk, strand, o);
+    copy_async<kPiece>(buf + r * kRow + c * (kPiece / 4),
+                       row + c * (kPiece / 4));
+  }
+}
+
+// The rows prefetch_pair copied for (k0, k1), as fetch_occ_row gives them.
+template <int WPB>
+__device__ __forceinline__ void take_pair(
+    const uint32_t* buf, uint32_t k0, uint32_t k1, uint32_t prim,
+    uint32_t seq_len, uint32_t n_blk, OccRow<WPB>& r0, OccRow<WPB>& r1) {
+  constexpr int kRow = 4 + WPB;
+  occ_block<WPB>(k0, prim, seq_len, n_blk, r0);
+  occ_block<WPB>(k1, prim, seq_len, n_blk, r1);
+#pragma unroll
+  for (int i = 0; i < kRow; ++i) {
+    r0.r[i] = buf[i];
+    r1.r[i] = buf[kRow + i];
+  }
 }
 
 // occ(k, c) from k's fetched row; l2d[c] = L2[c + 1] - L2[c].  c >= 4 (no

@@ -72,7 +72,7 @@ template <int WPB>
 // three would cap the step at 168 registers, which spills)
 __global__ void __launch_bounds__(kWarps * 32, 2)
     search_steps_kernel(const IbwaStepArgs a) {
-  extern __shared__ int32_t arena[];
+  extern __shared__ __align__(16) int32_t arena[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * kWarps + warp;
@@ -117,6 +117,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
   s.best_cnt = (int32_t)a.best_cnt[row];
   s.max_diff = (int)a.max_diff[row];
   s.rows = 0;
+  s.efetch = 0;
   s.used = acap;  // unknown until the first step's pass: the whole row
   s.pop.slot = (int)a.pslot[row];
   s.pop.key = (int32_t)a.pkey[row];
@@ -125,10 +126,13 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
   s.pop.m1 = (uint32_t)a.pm1[row];
   s.pop.m2 = (uint32_t)a.pm2[row];
 
-  NextRows<WPB> next;
+  s.cause = kCauseNone;  // the phased state keeps no cause
+  NextPop next;
   next.valid = false;
+  StageClock<false> clk;
   for (int step = 0; step < a.n_steps && !(s.done || s.fb); ++step)
-    search_step<WPB, true>(c, ix, p, s, next, lane);
+    search_step<WPB, true>(c, ix, p, s, next, lane, clk);
+  copy_async_wait();  // no copy into shared memory outlives the block
 
   for (int t = lane; t < acap; t += 32) {
 #pragma unroll

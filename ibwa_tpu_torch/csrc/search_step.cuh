@@ -14,14 +14,15 @@
 // every state the engine loads or steps has: the plain step rewrites those
 // planes every step, this code only where they change.
 //
-// Bound on an H100: latency, the chain of one lane.  A step moves a few
-// hundred bytes (two FM rows for the occ4 bounds, up to two more for the
-// E-chain's occ1, one or two read bases, two meta words), and 1,024 warps on
-// 132 SMs are ~8 warps an SM, so nothing hides a lane's chain but the lane
-// itself: pop -> occ4 rows (a dependent fetch from HBM, the table is above
-// what the L2 keeps) -> occ1 rows of the E-chain -> the children -> the pass
-// over the key row that finds the next pop, before whose end the next rows
-// could not be asked for.
+// Bound on an H100: latency, the chain of one lane, and behind it the
+// warp instructions a step issues.  A step moves a few hundred bytes (two FM
+// rows for the occ4 bounds, up to two more for the E-chain's occ1, one or
+// two read bases, two meta words), and a lane's step is a chain: pop -> occ4
+// rows (a dependent fetch from HBM, the table is above what the L2 keeps)
+// -> occ1 rows of the E-chain -> the children -> the pass over the key row
+// that finds the next pop, before whose end the next rows could not be
+// asked for.  Other lanes' chains hide it only as far as warps are
+// resident: the chunk kernel keeps 16 an SM (search_chunk.cu).
 //
 // Design, what it does about the chain:
 //   * the lane's arena (key, sk, sl, sm1, sm2 rows) is in shared memory
@@ -32,13 +33,25 @@
 //   * the lane's scalars and the popped entry are registers (`LaneState`),
 //     the same value in all 32 threads, so every branch on them is uniform
 //     and a row fetch is one broadcast transaction per warp;
+//   * one thread a child: thread j < 10 builds child j (interval, entry
+//     words, key) from the uniform counts, a ballot and a popcount give the
+//     push ranks, and each child thread stages its child in shared memory
+//     at its rank, where the thread that owns the free slot of that rank
+//     takes it in the arena pass.  No thread holds the ten children (the
+//     first version kept seven 10-wide arrays in every thread, 184
+//     registers), so four blocks of four warps fit an SM;
+//   * the E-chain's first extension of a spawned chain (cond_e) is counted
+//     on the popped entry's own occ4 rows, which are the rows it needs: only
+//     the continuation of a chain fetches for its next base;
 //   * the next pop's rows are asked for BEFORE the key pass (PF): the search
 //     is depth first, so the next pop is mostly a child just built, and of
 //     those the exact-extension child or the one that takes the read's own
 //     base (the popped entry's score, the latest push) whenever one exists.
-//     Its two occ4 rows are loaded into registers (`NextRows`) while
-//     stack_commit runs, and the next step takes them when its pop has that
-//     child's interval and strand; any other pop fetches as before;
+//     Its two occ4 rows are copied into the lane's shared memory
+//     (cp.async, fm_row.cuh's prefetch_pair) while stack_commit runs, with
+//     no register holding them, and the next step takes them when its pop
+//     has that child's interval and strand (`NextPop`); any other pop
+//     fetches as before;
 //   * all four bases of a bound are counted in one pass over its row
 //     (occ_count4), and the arena pass takes the key row in groups of chunks
 //     whose loads and ballots overlap (stack_commit.cuh): a lane's own
@@ -92,10 +105,60 @@ using namespace ibwa_stack;
 
 constexpr int kWarps = 4;  // lanes per block, one warp each
 
-// Bytes of shared memory a block needs for its lanes' arenas.
-inline size_t arena_bytes(int acap) {
-  return (size_t)kWarps * 5 * acap * sizeof(int32_t);
+// Why a read was routed to the host search, in the plain step's order where
+// two fire in one step (align/engine.py's FB_* codes).
+enum : int {
+  kCauseNone = 0,
+  kCauseIterCap = 1,  // the read ran past EngineConfig.iter_cap steps
+  kCauseArena = 2,    // a child found no free arena slot
+  kCauseHits = 3,     // a hit found the hit rows full
+  kCauseSeqno = 4,    // the push counter ran out of the key's seqno field
+};
+
+// Words of shared memory a lane needs: its arena's five rows, the staging
+// rows of its children and the two rows asked for ahead; a multiple of four
+// words, so that every lane's area is 16-byte aligned.
+__host__ __device__ inline size_t lane_words(int acap) {
+  return 5 * (size_t)acap + 5 * kStage + kPairWords;
 }
+
+// Bytes of shared memory a block needs for its lanes.
+inline size_t arena_bytes(int acap) {
+  return (size_t)kWarps * lane_words(acap) * sizeof(int32_t);
+}
+
+// The stages of a step whose clocks the profiling instantiation keeps
+// (ibwa_tpu_torch/profile_step.py --mode stages).
+enum : int {
+  kStDecode = 0,    // gating and the pop's fields
+  kStOcc4 = 1,      // the occ4 rows and their counts
+  kStHits = 2,      // budget, pruning, the hit and gap_shadow
+  kStEChain = 3,    // the exact-extension chain's occ1
+  kStChildren = 4,  // the children, their ranks and their staging
+  kStPrefetch = 5,  // the next pop's rows asked for
+  kStCommit = 6,    // stack_commit: the arena pass and the next pop
+  kStages = 7
+};
+
+// Per-stage clocks of one lane, summed over its steps (clock64), when PROF;
+// nothing at all otherwise.
+template <bool PROF>
+struct StageClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+};
+
+template <>
+struct StageClock<true> {
+  long long t[kStages];
+  long long last;
+  __device__ __forceinline__ void start() { last = clock64(); }
+  __device__ __forceinline__ void mark(int stage) {
+    const long long now = clock64();
+    t[stage] += now - last;
+    last = now;
+  }
+};
 
 // The index words every step needs, read once per launch, and where the
 // table's rows are (fm_row.cuh: FlatRows or ShardRows).
@@ -130,14 +193,18 @@ struct LaneState {
   int32_t best_cnt;
   int max_diff;
   bool done, fb;
-  int used;  // leading groups of the arena that may hold entries
+  int cause;  // kCause* of the step that set fb; kCauseNone while it is not
+  int used;   // leading groups of the arena that may hold entries
   Pop pop;
-  long long rows;  // FM rows the lane's steps needed, asked ahead or not
+  unsigned rows;     // FM rows the lane's steps needed, asked ahead or not
+  unsigned efetch;  // of them, the E-chain's fetches (two rows each)
 };
 
 // Where a lane's rows are.
 struct LaneRows {
   int32_t *key, *sk, *sl, *sm1, *sm2;  // the arena, [acap] each, shared
+  int32_t* stage;                      // staged children, [5, kStage]
+  uint32_t* pair;                      // the rows asked ahead, [2, 4 + WPB]
   int64_t *hk, *hl, *hm;               // hit rows, [hcap]
   int64_t *w, *bid, *meta;             // width rows of the read, [2, P]
   const uint8_t* seq2;                 // bases of the read, [2, L]
@@ -146,17 +213,18 @@ struct LaneRows {
 // The arena rows of warp `warp` in the block's shared memory.
 __device__ __forceinline__ void arena_rows(int32_t* smem, int warp, int acap,
                                            LaneRows& p) {
-  p.key = smem + (size_t)warp * 5 * acap;
+  p.key = smem + (size_t)warp * lane_words(acap);
   p.sk = p.key + acap;
   p.sl = p.sk + acap;
   p.sm1 = p.sl + acap;
   p.sm2 = p.sm1 + acap;
+  p.stage = p.sm2 + acap;
+  p.pair = reinterpret_cast<uint32_t*>(p.stage + 5 * kStage);
 }
 
-// The two occ4 rows asked for ahead of the next step, and whose they are.
-template <int WPB>
-struct NextRows {
-  OccRow<WPB> r0, r1;
+// The interval whose two occ4 rows were asked for ahead of the next step
+// (into LaneRows::pair), and on which strand; valid while they are.
+struct NextPop {
   uint32_t k, l, sidx;
   bool valid;
 };
@@ -171,13 +239,16 @@ __device__ __forceinline__ int int_log2(int v, int max_value) {
 }
 
 // One step of a lane that is neither done nor routed to the host; all 32
-// threads of the warp call it together.  It may set s.done or s.fb; the
-// caller steps the lane no further then.
-template <int WPB, bool PF, class Rows>
+// threads of the warp call it together.  It may set s.done or s.fb (and
+// s.cause with fb); the caller steps the lane no further then.  `clk` keeps
+// the stages' clocks in the profiling instantiation (PROF) and is nothing
+// in any other.
+template <int WPB, bool PF, bool PROF, class Rows>
 __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
                                             const Index<Rows>& ix,
                                             const LaneRows& p, LaneState& s,
-                                            NextRows<WPB>& next, int lane) {
+                                            NextPop& next, int lane,
+                                            StageClock<PROF>& clk) {
   const int P = a.L + a.SL + 2;
   const unsigned le = 0xFFFFFFFFu >> (31 - lane);  // lanes <= this one
 
@@ -189,6 +260,7 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
   ++s.lane_it;  // heavy-tail cap: the read goes to the host search
   if (s.lane_it > a.iter_cap) {
     s.fb = true;
+    s.cause = kCauseIterCap;
     return;
   }
 
@@ -215,15 +287,22 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
   const bool is_norm = !is_e;
   const int i2 = max(e_i - 1, 0);
   const int i2g = min(i2, a.L - 1);
+  clk.mark(kStDecode);
 
   // ---- 3. occ4 at (k - 1, l): the rows asked for ahead when they are this
   // pop's, else both in flight now; then the loads that do not depend on
-  // them
+  // them.  Rows asked for ahead are waited for in any case: the buffer
+  // takes the next ones.
   OccRow<WPB> r0, r1;
-  if (PF && next.valid && next.k == e_k && next.l == e_l &&
-      next.sidx == sidx) {
-    r0 = next.r0;
-    r1 = next.r1;
+  bool ahead = false;
+  if (PF && next.valid) {
+    copy_async_wait();
+    __syncwarp();
+    ahead = next.k == e_k && next.l == e_l && next.sidx == sidx;
+  }
+  if (ahead) {
+    take_pair<WPB>(p.pair, e_k - 1u, e_l, prim, ix.seq_len, ix.n_blk, r0,
+                   r1);
   } else {
     fetch_occ_row<WPB>(ix.rows, e_k - 1u, prim, ix.seq_len,
                        ix.n_blk, sidx, r0);
@@ -246,6 +325,7 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
     kj[c] += ix.l2[c] + 1u;
     lj[c] += ix.l2[c];
   }
+  clk.mark(kStOcc4);
 
   // ---- 4. budget and D(i) pruning, hits
   const int bm1 = (int)(mm_ & 0x3FFFu), b0 = (int)((mm_ >> 14) & 0x3FFFu);
@@ -290,6 +370,7 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
   bool do_add = add && !dup;
   if (do_add && s.n_hits >= a.hcap) {  // hit capacity: host search
     s.fb = true;
+    s.cause = kCauseHits;
     do_add = false;
   }
   if (do_add) {
@@ -344,6 +425,7 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
     }
     __syncwarp();  // the next step's meta read sees these writes
   }
+  clk.mark(kStHits);
 
   // ---- 6. expansion into <= 10 children in reference push order
   const bool ad1 = bm1 > m - 1;
@@ -375,7 +457,9 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
   const bool allow_full = allow_diff && allow_m;
 
   // slot 9: the exact-extension chain (spawn or continuation) burns
-  // e_unroll - 1 more bases with occ1
+  // e_unroll - 1 more bases with occ1.  A spawned chain (cond_e) starts
+  // from the popped interval, whose occ4 rows are r0 / r1: its first base
+  // is counted there, with no fetch.
   bool ev = cond_e || e_go;
   uint32_t ek9 = cond_e ? e_k : e_k2, el9 = cond_e ? e_l : e_l2;
   int ei9 = cond_e ? e_i : e_i - 1;
@@ -384,15 +468,21 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
     const int bu =
         (int)__ldg(p.seq2 + e_a * a.L + min(max(ei9 - 1, 0), a.L - 1));
     const uint32_t cu = (uint32_t)min(bu, 3);
-    OccRow<WPB> u0, u1;
-    s.rows += 2;
-    fetch_occ_row<WPB>(ix.rows, ek9 - 1u, prim, ix.seq_len,
-                       ix.n_blk, sidx, u0);
-    fetch_occ_row<WPB>(ix.rows, el9, prim, ix.seq_len, ix.n_blk,
-                       sidx, u1);
-    const uint32_t k2u =
-        pick4(ix.l2, cu) + occ_count<WPB>(u0, cu, ix.l2d) + 1u;
-    const uint32_t l2v = pick4(ix.l2, cu) + occ_count<WPB>(u1, cu, ix.l2d);
+    uint32_t k2u, l2v;
+    if (u == 1 && cond_e) {  // the rows of (e_k - 1, e_l), counted above
+      k2u = pick4(kj, cu);
+      l2v = pick4(lj, cu);
+    } else {
+      OccRow<WPB> u0, u1;
+      s.rows += 2;
+      ++s.efetch;
+      fetch_occ_row<WPB>(ix.rows, ek9 - 1u, prim, ix.seq_len,
+                         ix.n_blk, sidx, u0);
+      fetch_occ_row<WPB>(ix.rows, el9, prim, ix.seq_len, ix.n_blk,
+                         sidx, u1);
+      k2u = pick4(ix.l2, cu) + occ_count<WPB>(u0, cu, ix.l2d) + 1u;
+      l2v = pick4(ix.l2, cu) + occ_count<WPB>(u1, cu, ix.l2d);
+    }
     if (bu < 4 && k2u <= l2v) {
       ek9 = k2u;
       el9 = l2v;
@@ -401,104 +491,106 @@ __device__ __forceinline__ void search_step(const IbwaSearchCfg& a,
       ev = false;
     }
   }
+  clk.mark(kStEChain);
 
-  Children ch;
-  ch.valid = 0;
-  int nmm[kNch], gapo[kNch], gape[kNch], ci[kNch], ldp[kNch], state[kNch];
-  // slot 0: I open (from M) or I extend (from I)
-  if (io || ie) ch.valid |= 1u;
-  ch.k[0] = e_k;
-  ch.l[0] = e_l;
-  ci[0] = i2;
-  state[0] = a.state_i;
-  nmm[0] = e_nmm;
-  gapo[0] = e_gapo + (io ? 1 : 0);
-  gape[0] = e_gape + (ie ? 1 : 0);
-  ldp[0] = i2;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    // slots 1-4: D open (from M) or D extend (from D), base j
-    if (d_any && kj[j] <= lj[j]) ch.valid |= 1u << (1 + j);
-    ch.k[1 + j] = kj[j];
-    ch.l[1 + j] = lj[j];
-    ci[1 + j] = i2 + 1;
-    state[1 + j] = a.state_d;
-    nmm[1 + j] = e_nmm;
-    gapo[1 + j] = e_gapo + (d_open ? 1 : 0);
-    gape[1 + j] = e_gape + (d_ext ? 1 : 0);
-    ldp[1 + j] = i2 + 1;
-    // slots 5-8: mismatch / match with base c = (base + j + 1) & 3; the
-    // last one is the read's own base when it is one
-    const uint32_t c = (uint32_t)(base + j + 1) & 3u;
-    const uint32_t kc = pick4(kj, c), lc = pick4(lj, c);
-    const bool is_mm = j < 3 || base > 3;
-    const bool m_ok = j < 3 ? allow_full : (allow_full || base < 4);
-    if (expand && kc <= lc && m_ok) ch.valid |= 1u << (5 + j);
-    ch.k[5 + j] = kc;
-    ch.l[5 + j] = lc;
-    ci[5 + j] = i2;
-    state[5 + j] = a.state_m;
-    nmm[5 + j] = e_nmm + (is_mm ? 1 : 0);
-    gapo[5 + j] = e_gapo;
-    gape[5 + j] = e_gape;
-    ldp[5 + j] = is_mm ? i2 : e_ldp;
+  // the child of this thread, j = lane < 10: 0 I open (from M) or I extend
+  // (from I); 1-4 D open (from M) or D extend (from D), base j - 1; 5-8
+  // mismatch / match with base (base + j - 4) & 3, the last one the read's
+  // own base when it is one; 9 the exact-extension chain
+  bool cv = false;
+  uint32_t ck = e_k, cl = e_l;
+  int cnmm = e_nmm, cgapo = e_gapo, cgape = e_gape, cci = i2, cldp = i2;
+  int cstate = a.state_i;
+  if (lane == 0) {
+    cv = io || ie;
+    cgapo += io ? 1 : 0;
+    cgape += ie ? 1 : 0;
+  } else if (lane <= 4) {
+    ck = pick4(kj, (uint32_t)(lane - 1));
+    cl = pick4(lj, (uint32_t)(lane - 1));
+    cv = d_any && ck <= cl;
+    cci = cldp = i2 + 1;
+    cstate = a.state_d;
+    cgapo += d_open ? 1 : 0;
+    cgape += d_ext ? 1 : 0;
+  } else if (lane <= 8) {
+    const uint32_t c = (uint32_t)(base + lane - 4) & 3u;
+    ck = pick4(kj, c);
+    cl = pick4(lj, c);
+    const bool is_mm = lane < 8 || base > 3;
+    const bool m_ok = lane < 8 ? allow_full : (allow_full || base < 4);
+    cv = expand && ck <= cl && m_ok;
+    cstate = a.state_m;
+    cnmm += is_mm ? 1 : 0;
+    cldp = is_mm ? i2 : e_ldp;
+  } else if (lane == 9) {
+    cv = ev;
+    ck = ek9;
+    cl = el9;
+    cci = ei9;
+    cstate = a.state_e;
+    cldp = e_ldp;
   }
-  if (ev) ch.valid |= 1u << 9;
-  ch.k[9] = ek9;
-  ch.l[9] = el9;
-  ci[9] = ei9;
-  state[9] = a.state_e;
-  nmm[9] = e_nmm;
-  gapo[9] = e_gapo;
-  gape[9] = e_gape;
-  ldp[9] = e_ldp;
-
-  int rank = 0;
-  const unsigned pushed_in = ch.valid;
-#pragma unroll
-  for (int j = 0; j < kNch; ++j) {
-    ch.m1[j] = (uint32_t)state[j] | (e_a << 2) | ((uint32_t)ci[j] << 3) |
-               ((uint32_t)ldp[j] << 16);
-    ch.m2[j] = (uint32_t)nmm[j] | ((uint32_t)gapo[j] << 8) |
-               ((uint32_t)gape[j] << 16);
+  // push ranks: a ballot, and each child's exclusive popcount; the children
+  // past the key's seqno field are not pushed, and route the read to the
+  // host search
+  const unsigned made = __ballot_sync(kFullWarp, cv);
+  const int rank = __popc(made & ((1u << lane) - 1u));
+  const int n_made = __popc(made);
+  const int n_push = min(n_made, max(a.max_seq - s.seqc, 0));
+  if (n_push < n_made) {
+    if (!s.fb) s.cause = kCauseSeqno;
+    s.fb = true;
+  }
+  if (cv && rank < n_push) {
     // the key's low 32 bits, as the plain step wraps them
-    const uint32_t sc = (uint32_t)(nmm[j] * a.s_mm + gapo[j] * a.s_gapo +
-                                   gape[j] * a.s_gape);
-    ch.ofs[j] = rank;  // exclusive rank among the children
-    const int seq = s.seqc + rank;
-    ch.key[j] = (int32_t)((sc << 20) | (uint32_t)(a.max_seq - seq));
-    if ((pushed_in >> j) & 1u) {
-      ++rank;
-      if (seq >= a.max_seq) {  // seqno field exhausted: host search
-        s.fb = true;
-        ch.valid &= ~(1u << j);
-      }
-    }
+    const uint32_t sc = (uint32_t)(cnmm * a.s_mm + cgapo * a.s_gapo +
+                                   cgape * a.s_gape);
+    p.stage[rank] =
+        (int32_t)((sc << 20) | (uint32_t)(a.max_seq - (s.seqc + rank)));
+    p.stage[kStage + rank] = (int32_t)ck;
+    p.stage[2 * kStage + rank] = (int32_t)cl;
+    p.stage[3 * kStage + rank] =
+        (int32_t)((uint32_t)cstate | (e_a << 2) | ((uint32_t)cci << 3) |
+                  ((uint32_t)cldp << 16));
+    p.stage[4 * kStage + rank] =
+        (int32_t)((uint32_t)cnmm | ((uint32_t)cgapo << 8) |
+                  ((uint32_t)cgape << 16));
   }
+  clk.mark(kStChildren);
 
   // ---- 6b. ask for the rows of the likely next pop before the pass over
   // the key row: the chain's child, else the child that takes the read's own
   // base.  Either has the popped entry's score and the latest push, so it is
-  // the next pop whenever it exists; any other step asks for nothing.
-  if (PF && (ch.valid >> 8)) {
-    const bool c9 = (ch.valid >> 9) & 1u;
-    next.k = c9 ? ch.k[9] : ch.k[8];
-    next.l = c9 ? ch.l[9] : ch.l[8];
+  // the next pop whenever it is pushed; any other step asks for nothing.
+  // Both are uniform: the chain's interval, and child 8's base (base & 3).
+  // The rows go to shared memory (cp.async), so no register holds them
+  // through the arena pass.
+  const bool push9 = ((made >> 9) & 1u) && __popc(made & 0x1FFu) < n_push;
+  const bool push8 = ((made >> 8) & 1u) && __popc(made & 0xFFu) < n_push;
+  if (PF && (push8 || push9)) {
+    next.k = push9 ? ek9 : pick4(kj, (uint32_t)base & 3u);
+    next.l = push9 ? el9 : pick4(lj, (uint32_t)base & 3u);
     next.sidx = sidx;
     next.valid = true;
-    fetch_occ_row<WPB>(ix.rows, next.k - 1u, prim, ix.seq_len,
-                       ix.n_blk, sidx, next.r0);
-    fetch_occ_row<WPB>(ix.rows, next.l, prim, ix.seq_len,
-                       ix.n_blk, sidx, next.r1);
+    prefetch_pair<WPB>(ix.rows, next.k - 1u, next.l, prim, ix.seq_len,
+                       ix.n_blk, sidx, p.pair, lane);
   }
+  clk.mark(kStPrefetch);
 
-  // ---- 7. the arena update and the next pop
-  const Pushed pushed =
-      stack_commit(lane, true, s.pop.slot, ch, p.key, p.sk, p.sl, p.sm1,
-                   p.sm2, a.acap, s.used, s.pop);
-  s.fb = s.fb || pushed.ovf;
-  s.seqc += pushed.count;
-  s.stack_n += pushed.count;
+  // ---- 7. the arena update and the next pop: n_push children of ranks
+  // 0 .. n_push - 1; those at or beyond the free count overflow the arena
+  const int n_free =
+      stack_commit(lane, true, s.pop.slot, StagedChildren{p.stage, n_push},
+                   p.key, p.sk, p.sl, p.sm1, p.sm2, a.acap, s.used, s.pop);
+  if (n_push > n_free) {
+    if (!s.fb) s.cause = kCauseArena;
+    s.fb = true;
+  }
+  const int pushed = min(n_push, n_free);
+  s.seqc += pushed;
+  s.stack_n += pushed;
+  clk.mark(kStCommit);
 }
 
 }  // namespace ibwa_step

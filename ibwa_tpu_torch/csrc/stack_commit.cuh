@@ -7,9 +7,9 @@
 // so the planes compare bitwise:
 //   1. free the popped slot (key := INT32_MAX) of an active lane;
 //   2. rank the free slots (key == INT32_MAX) in slot order;
-//   3. write child j (of 10) into the free slot of rank ofs[j] (0-based),
-//      when valid; flag overflow when ofs[j] >= the free count, and count
-//      the pushes that fit;
+//   3. write the child of offset r (0-based) into the free slot of rank r,
+//      when there is one; the caller flags overflow when a child's offset
+//      is at or beyond the free count (stack_commit returns that count);
 //   4. take the first-minimum argmin of the updated key row and return
 //      that slot's key and 4 entry words as the next step's pop.
 //
@@ -18,22 +18,27 @@
 // memory).  What bounds it is not bytes but the chain of one warp's own
 // dependent operations, so the row is taken in groups of 8 chunks whose
 // loads, ballots and prefix counts are independent of one another and
-// overlap: the
-// free-slot rank is a __ballot_sync + __popc per chunk on top of the running
-// count of the chunks before; the placement (10 compares per free slot) runs
-// only in chunks that still have a child to take, which is the first chunk
-// or two; each thread keeps its own first minimum (its slots ascend) and two
-// warp reductions (redux.sync: the least key, then the least slot that holds
-// it) give the row's first minimum.  The planes are updated in place: only
-// the owner thread of a slot writes it; after a warp barrier every thread
-// reads the popped entry from the planes (one broadcast read each), so the
-// pop needs no shuffle.  Where two valid children carry the same offset the
-// later child wins, as in the Pallas kernel's sequential j loop.
+// overlap: the free-slot rank is a __ballot_sync + __popc per chunk on top
+// of the running count of the chunks before; the placement runs only in
+// chunks that still have a child to take, which is the first chunk or two;
+// each thread keeps its own first minimum (its slots ascend) and two warp
+// reductions (redux.sync: the least key, then the least slot that holds it)
+// give the row's first minimum.  The planes are updated in place: only the
+// owner thread of a slot writes it; after a warp barrier every thread reads
+// the popped entry from the planes (one broadcast read each), so the pop
+// needs no shuffle.
 //
-// The ten children come in registers, the same values in every thread of
-// the warp.  `krow` is the key row the pass works on and sk .. sm2 the
-// payload rows: global memory (K1) or shared memory that holds the lane's
-// arena for as long as the lane lives (the search step).
+// Where the children come from is the caller's, a template parameter with
+// two calls: `last()`, the highest offset that takes a child (-1: none; the
+// same in every thread), and `take(r, ...)`, the child of offset r, if any,
+// for the thread that owns the free slot of rank r.  The search step stages
+// its children in shared memory by push rank, each written by the thread
+// that built it (StagedChildren: ranks 0 .. n - 1, no gaps); K1 reads them
+// from its tensors, where two valid children may carry the same offset and
+// the later one wins, as in the Pallas kernel's sequential j loop.  `krow`
+// is the key row the pass works on and sk .. sm2 the payload rows: global
+// memory (K1) or shared memory that holds the lane's arena for as long as
+// the lane lives (the search step).
 #ifndef IBWA_STACK_COMMIT_CUH
 #define IBWA_STACK_COMMIT_CUH
 
@@ -43,15 +48,9 @@
 
 namespace ibwa_stack {
 
-constexpr int kNch = 10;
+constexpr int kNch = 10;     // children a step makes at most
+constexpr int kStage = 16;   // staged children a lane has room for
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
-
-struct Children {
-  unsigned valid;  // bit j: child j is pushed
-  int ofs[kNch];   // exclusive push rank
-  int32_t key[kNch];
-  uint32_t k[kNch], l[kNch], m1[kNch], m2[kNch];
-};
 
 struct Pop {  // the next step's pop; the same in every thread on return
   int slot;
@@ -59,9 +58,22 @@ struct Pop {  // the next step's pop; the same in every thread on return
   uint32_t k, l, m1, m2;
 };
 
-struct Pushed {
-  bool ovf;   // a valid child found no free slot
-  int count;  // valid children that fit
+// The search step's children, staged by push rank in five rows of kStage
+// words (key, k, l, m1, m2) of shared memory: ranks 0 .. n - 1 hold one.
+struct StagedChildren {
+  const int32_t* stage;
+  int n;
+  __device__ __forceinline__ int last() const { return n - 1; }
+  __device__ __forceinline__ bool take(int r, int32_t& key, uint32_t& k,
+                                       uint32_t& l, uint32_t& m1,
+                                       uint32_t& m2) const {
+    key = stage[r];
+    k = (uint32_t)stage[kStage + r];
+    l = (uint32_t)stage[2 * kStage + r];
+    m1 = (uint32_t)stage[3 * kStage + r];
+    m2 = (uint32_t)stage[4 * kStage + r];
+    return r < n;
+  }
 };
 
 constexpr int kGroup = 8;  // chunks of 32 slots taken together
@@ -73,18 +85,18 @@ constexpr int kGroup = 8;  // chunks of 32 slots taken together
 // slots, so a search keeps its entries at the low end of the row, and a
 // row of several groups (ACAP 1,024) is passed over only as far as its
 // entries and the children reach.  Pass the row's group count for a row of
-// unknown content; on return it is the count for the updated row.
-__device__ __forceinline__ Pushed stack_commit(
-    int lane, bool act, int64_t slot0, const Children& ch, int32_t* krow,
+// unknown content; on return it is the count for the updated row.  Returns
+// the free slots of the row after the pop was freed, before the children
+// were placed: a child of offset r fits when r < that count.
+template <class Src>
+__device__ __forceinline__ int stack_commit(
+    int lane, bool act, int64_t slot0, const Src& ch, int32_t* krow,
     int32_t* sk, int32_t* sl, int32_t* sm1, int32_t* sm2, int acap,
     int& used, Pop& pop) {
   const unsigned lt = (1u << lane) - 1u;
   __syncwarp();  // the pop every thread read from the planes at the end of
-                 // the last pass is read before its slot is written again
-  int last_ofs = -1;  // no free slot of a higher rank takes a child
-#pragma unroll
-  for (int j = 0; j < kNch; ++j)
-    if ((ch.valid >> j) & 1u) last_ofs = max(last_ofs, ch.ofs[j]);
+                 // the last pass, and the staged children, are in place
+  const int last_ofs = ch.last();  // no free slot of a higher rank takes one
   int n_free = 0;          // free slots in earlier chunks
   int32_t best = INT_MAX;  // this thread's first minimum
   int best_i = lane;
@@ -118,19 +130,10 @@ __device__ __forceinline__ Pushed stack_commit(
       if (n_free <= last_ofs) {  // uniform: a child is still to be placed
         const int r = n_free + __popc(m[u] & lt);  // 0-based free rank
         if (((m[u] >> lane) & 1u) && r <= last_ofs) {
-          bool placed = false;
-          uint32_t vk = 0, vl = 0, vm1 = 0, vm2 = 0;
-#pragma unroll
-          for (int j = 0; j < kNch; ++j)
-            if (((ch.valid >> j) & 1u) && ch.ofs[j] == r) {
-              placed = true;
-              kk[u] = ch.key[j];
-              vk = ch.k[j];
-              vl = ch.l[j];
-              vm1 = ch.m1[j];
-              vm2 = ch.m2[j];
-            }
-          if (placed) {
+          int32_t vkey;
+          uint32_t vk, vl, vm1, vm2;
+          if (ch.take(r, vkey, vk, vl, vm1, vm2)) {
+            kk[u] = vkey;
             changed[u] = true;
             sk[s] = (int32_t)vk;
             sl[s] = (int32_t)vl;
@@ -161,17 +164,7 @@ __device__ __forceinline__ Pushed stack_commit(
   pop.l = (uint32_t)sl[slot];
   pop.m1 = (uint32_t)sm1[slot];
   pop.m2 = (uint32_t)sm2[slot];
-
-  Pushed out = {false, 0};
-#pragma unroll
-  for (int j = 0; j < kNch; ++j) {
-    if (!((ch.valid >> j) & 1u)) continue;
-    if (ch.ofs[j] < n_free)
-      ++out.count;
-    else
-      out.ovf = true;
-  }
-  return out;
+  return n_free;
 }
 
 }  // namespace ibwa_stack

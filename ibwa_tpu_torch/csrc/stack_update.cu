@@ -6,11 +6,12 @@
 // slot, rank the free slots, place <= 10 children, first-minimum argmin and
 // the next pop's entry) is the __device__ function stack_commit of
 // stack_commit.cuh, which says what it computes and how; stage 7 of the
-// search step (search_step.cuh) calls the same function with the children in
-// registers, and that is where the aln path runs it.  This kernel is the
-// thin wrapper that reads one step's children from tensors, one warp per
-// lane row, and writes the pop back: it serves the plain search step's
-// callers of `stack_update` and holds stack_commit against
+// search step (search_step.cuh) calls the same function with the children
+// staged in shared memory by the threads that built them, and that is where
+// the aln path runs it.  This kernel is the thin wrapper that takes one
+// step's children from tensors (RowChildren), one warp per lane row, and
+// writes the pop back: it serves the plain search step's callers of
+// `stack_update` and holds stack_commit against
 // `stack_update_plain` on inputs a real search never produces (repeated
 // offsets, full arenas).
 //
@@ -22,6 +23,7 @@
 // is most of the time, which is why the step keeps this work inside its
 // own launch.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -30,6 +32,32 @@
 namespace {
 
 using namespace ibwa_stack;
+
+// One row's children as K1's tensors hold them: child j at [row * 10 + j],
+// any offsets, repeated ones included; where two valid children carry the
+// offset of a free slot the later one wins, as in the Pallas kernel's
+// sequential j loop.  Read through the cache by every thread that asks.
+struct RowChildren {
+  const bool* cv;
+  const int64_t *ofs, *kv, *ck, *cl, *cm1, *cm2;
+  int last_ofs;
+  __device__ __forceinline__ int last() const { return last_ofs; }
+  __device__ __forceinline__ bool take(int r, int32_t& key, uint32_t& k,
+                                       uint32_t& l, uint32_t& m1,
+                                       uint32_t& m2) const {
+    bool placed = false;
+    for (int j = 0; j < kNch; ++j)
+      if (cv[j] && ofs[j] == r) {
+        placed = true;
+        key = (int32_t)kv[j];
+        k = (uint32_t)ck[j];
+        l = (uint32_t)cl[j];
+        m1 = (uint32_t)cm1[j];
+        m2 = (uint32_t)cm2[j];
+      }
+    return placed;
+  }
+};
 
 __global__ void stack_update_kernel(
     const int64_t* __restrict__ slot0, const bool* __restrict__ act,
@@ -46,34 +74,36 @@ __global__ void stack_update_kernel(
   const int lane = threadIdx.x & 31;
   if (row >= B) return;  // uniform across the warp
 
-  Children ch;
-  ch.valid = 0;
-#pragma unroll
-  for (int j = 0; j < kNch; ++j) {
-    const int64_t ci = row * kNch + j;
-    if (cv[ci]) ch.valid |= 1u << j;
-    ch.ofs[j] = (int)ofs[ci];
-    ch.key[j] = (int32_t)kv[ci];
-    ch.k[j] = (uint32_t)ck[ci];
-    ch.l[j] = (uint32_t)cl[ci];
-    ch.m1[j] = (uint32_t)cm1[ci];
-    ch.m2[j] = (uint32_t)cm2[ci];
-  }
+  const int64_t c0 = row * kNch;
+  RowChildren ch = {cv + c0, ofs + c0, kv + c0, ck + c0, cl + c0, cm1 + c0,
+                    cm2 + c0, -1};
+  for (int j = 0; j < kNch; ++j)
+    if (cv[c0 + j] && ofs[c0 + j] > ch.last_ofs)
+      ch.last_ofs = (int)min(ofs[c0 + j], (int64_t)INT_MAX - 1);
   const int64_t base = row * (int64_t)acap;
   Pop pop;
   int used = acap;  // a row of unknown content: the whole of it
-  const Pushed pushed =
+  const int n_free =
       stack_commit(lane, act[row], slot0[row], ch, key + base, sk + base,
                    sl + base, sm1 + base, sm2 + base, acap, used, pop);
   if (lane == 0) {
+    bool over = false;
+    int count = 0;
+    for (int j = 0; j < kNch; ++j) {
+      if (!cv[c0 + j]) continue;
+      if (ofs[c0 + j] < n_free)
+        ++count;
+      else
+        over = true;
+    }
     pslot[row] = pop.slot;
     pkey[row] = pop.key;
     pk[row] = (int64_t)pop.k;
     pl[row] = (int64_t)pop.l;
     pm1[row] = (int64_t)pop.m1;
     pm2[row] = (int64_t)pop.m2;
-    ovf[row] = pushed.ovf;
-    npush[row] = pushed.count;
+    ovf[row] = over;
+    npush[row] = count;
   }
 }
 

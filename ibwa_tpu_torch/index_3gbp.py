@@ -292,7 +292,8 @@ def align(fa: pathlib.Path, work: pathlib.Path, device: str, pairs: int,
             f"({summary['device_only']['launches']}); ACAP "
             f"{summary['device_only']['acap'][0]} on {seq_len} bases; "
             f"fallback share device-only "
-            f"{summary['device_only']['fallback_share']:.4f}, hybrid "
+            f"{summary['device_only']['fallback_share']:.4f} (by cause "
+            f"{summary['device_only']['fallback_by_cause']}), hybrid "
             f"{summary['hybrid']['fallback_share']:.4f}, the hybrid's "
             f"host share {[b['host_share'] for b in res['hybrid']['batches']]}")
         ends.append(summary)

@@ -74,8 +74,13 @@ _SIGNATURES = {
     "ibwa_enable_peer": [_I, _I],
     # the argument struct (align/engine.py::_SwitchArgs), stream
     "ibwa_lane_switch": [_P, _P],
-    # the argument struct (align/engine.py::_ChunkArgs), prefetch, stream
+    # the argument struct (align/engine.py::_ChunkArgs), mode, stream
     "ibwa_search_chunk": [_P, _I, _P],
+    # ... with out int32[4] (the launch's shape) in place of the stream
+    "ibwa_search_chunk_shape": [_P, _I, _P],
+    # K8's first version: the struct (engine.py::_ChunkFirstArgs), prefetch,
+    # stream
+    "ibwa_search_chunk_first": [_P, _I, _P],
     # tgt, tgt_off, qry, qry_off, g0, band, ids, n_ids, matrix (host),
     # gap_open, gap_ext, eh, out, stats, max_blocks, stream
     "ibwa_extend_dp": [_P] * 7 + [_I, _P, _I, _I, _P, _P, _P, _I, _P],

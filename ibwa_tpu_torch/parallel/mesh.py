@@ -81,7 +81,7 @@ def _search_dp(cfg, dfms: list[DeviceFmPair], batch, n_lanes: int):
     out = []
     for st, _, part in launched:
         with engine.on_stream(st):
-            hits, n_hits, fb, steps = engine.collect_search(part)
+            hits, n_hits, fb, steps, _ = engine.collect_search(part)
             out.append((hits.cpu(), n_hits.cpu(), fb.cpu(), steps))
     return (torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out]),
             torch.cat([o[2] for o in out]),

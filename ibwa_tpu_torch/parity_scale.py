@@ -573,7 +573,7 @@ def aln_pair(tag: str, fa, fq, work: pathlib.Path, device: str,
 def aln_summary(st: dict) -> dict:
     """What a report keeps of an aln run."""
     keep = ("reads", "search_s", "wall", "device_reads", "fallback_reads",
-            "host_reads", "launches", "n_batches")
+            "fallback_by_cause", "host_reads", "launches", "n_batches")
     out = {k: st[k] for k in keep if k in st}
     if "batches" in st:
         out["batches"] = st["batches"]

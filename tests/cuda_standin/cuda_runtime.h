@@ -364,6 +364,13 @@ inline unsigned __reduce_or_sync(unsigned, unsigned v) {
 }
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+
+// a clock that advances by one at every read: stage clocks add up, and
+// mean nothing here
+inline long long clock64() {
+  static long long ticks = 0;
+  return ++ticks;
+}
 inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
 
 template <class T>

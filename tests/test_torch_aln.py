@@ -161,8 +161,8 @@ def test_port_never_imports_jax(aln_inputs, tmp_path):
         "from ibwa_tpu_torch.index.builder import load_index\n"
         f"engine.DEV_BATCH = {LANES}\n"
         "calls, steps = [], engine.search_steps\n"
-        "engine.search_steps = lambda *a: (calls.append(a[-1]), "
-        "steps(*a))[1]\n"
+        "engine.search_steps = lambda *a, **k: (calls.append(a[4]), "
+        "steps(*a, **k))[1]\n"
         "chunks, run = [], engine.launch_search\n"
         "engine.launch_search = lambda *a, **k: "
         "(chunks.append(k['n_lanes']), run(*a, **k))[1]\n"

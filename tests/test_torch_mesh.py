@@ -45,7 +45,8 @@ from test_sharded_index import _problem
 from test_torch_aln import aln_inputs, genome_index  # noqa: F401
 from test_torch_chunk import CSRC, STANDIN, chunk, standin_source  # noqa
 from test_torch_engine import small_index  # noqa: F401 (fixture)
-from test_torch_switch import N_LANES, chunk_inputs  # noqa: F401
+from test_torch_switch import (N_LANES, chunk_inputs,  # noqa: F401
+                               chunk_reads)
 
 torch.set_num_threads(1)
 
@@ -311,10 +312,10 @@ def test_sharded_sources_equal_flat_and_plain(chunk, mesh_standin,
     sp = tdev.shard_pair(fm, ["cpu"] * n_idx)
     plain_big = engine.big_planes_plain(cfg, fm, seqs, lens, hs, ssq)
     plain_split = engine.big_planes_plain(cfg, sp, seqs, lens, hs, ssq)
-    want_h, want_nh, want_fb, want_steps = engine.run_search_phased(
-        cfg, fm, *args, n_lanes=N_LANES)
+    want_h, want_nh, want_fb, want_steps, want_cause = \
+        engine.run_search_phased(cfg, fm, *args, n_lanes=N_LANES)
     split = engine.run_search_phased(cfg, sp, *args, n_lanes=N_LANES)
-    assert split[3] == want_steps
+    assert split[3] == want_steps and torch.equal(split[4], want_cause)
     assert torch.equal(split[1], want_nh) and torch.equal(split[2], want_fb)
 
     monkeypatch.setattr(kernels, "lib", lambda: mesh_standin)
@@ -324,18 +325,20 @@ def test_sharded_sources_equal_flat_and_plain(chunk, mesh_standin,
     for a, b, c, d in zip(plain_big, plain_split, flat_big, shard_big):
         assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
     runs = [engine._launch_search_chunk(cfg, f, seqs, big, lens, md, hs, bad,
-                                        N_LANES, 0)
+                                        0)
             for f, big in ((fm, flat_big), (sp, shard_big))]
     assert dict(kernels.launches) == {
         "width_pass": 1, "width_pass_sharded": 1, "search_chunk": 1,
         "search_chunk_sharded": 1}
-    (fh, fnh, ffb, fc), (sh, snh, sfb, sc) = runs
-    assert torch.equal(sh, fh) and torch.equal(snh, fnh)
-    assert torch.equal(sfb, ffb) and torch.equal(sc, fc)
+    for f, s in zip(*runs):   # every output and every counter
+        assert torch.equal(s, f)
     assert torch.equal(shard_big[0], flat_big[0])   # gap_shadow, in place
-    assert sc.tolist()[:2] == [0, want_steps]
-    assert torch.equal(snh, want_nh) and torch.equal(sfb, want_fb)
-    hits = sh.permute(1, 2, 0)
-    assert torch.equal(engine.masked_hits(hits, snh, sfb),
+    sh, snh, sfb, sit, scause, sc = runs[1]
+    hits, nh, fb, steps, cause = engine.finish_chunk(
+        sh.permute(1, 2, 0), snh, sfb, sit, scause, N_LANES)
+    assert steps == want_steps and sc.tolist()[1] == len(sfb)   # flushed
+    assert torch.equal(nh, want_nh) and torch.equal(fb, want_fb)
+    assert torch.equal(cause, want_cause)
+    assert torch.equal(engine.masked_hits(hits, nh, fb),
                        engine.masked_hits(want_h, want_nh, want_fb))
     assert 0 < int(snh.sum()) and 0 < int(sfb.sum()) < len(sfb)

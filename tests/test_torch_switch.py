@@ -37,15 +37,24 @@ ITER_CAP = 200   # a step budget some of the short reads overflow
 
 
 @pytest.fixture(scope="module")
-def chunk_inputs(small_index):
+def chunk_reads(small_index):
     """96 reads of 24 bases for 32 lanes; every third read carries an N,
-    and read 7 more Ns than its diff budget (`bad`)."""
+    and read 7 more Ns than its diff budget (`bad`): (fms, seqs, rseqs,
+    options)."""
     fms, seq = small_index
     seqs, rseqs = _make_reads(seq, n=N_READS, read_len=24, seed=5)
     for i in range(0, N_READS, 3):
         seqs[i][i % 24] = rseqs[i][i % 24] = 4
     seqs[7][:12] = rseqs[7][:12] = 4
-    jcfg, tcfg, arrs = _batch(fms, seqs, rseqs, CASES["default"])
+    return fms, seqs, rseqs, CASES["default"]
+
+
+@pytest.fixture(scope="module")
+def chunk_inputs(chunk_reads):
+    """`chunk_reads` as the search takes them: (fms, JAX config, config,
+    packed arrays), the step budget set to ITER_CAP."""
+    fms, seqs, rseqs, opt = chunk_reads
+    jcfg, tcfg, arrs = _batch(fms, seqs, rseqs, opt)
     jcfg = dataclasses.replace(jcfg, iter_cap=ITER_CAP)
     tcfg = dataclasses.replace(tcfg, iter_cap=ITER_CAP)
     assert arrs[5][7] and arrs[5].sum() == 1            # the one bad read
@@ -62,7 +71,7 @@ def test_persistent_run_matches_jax(chunk_inputs):
         jnp.asarray(lens, jnp.int32), jnp.asarray(md, jnp.int32),
         jnp.asarray(hs), jnp.asarray(ssq), jnp.asarray(bad),
         seq_len=jfm.seq_len, n_blk=jfm.n_blk, n_lanes=N_LANES)
-    hits, nh, fb, steps = engine.run_search_persistent(
+    hits, nh, fb, steps, _ = engine.run_search_persistent(
         tcfg, tfm, *(torch.from_numpy(np.ascontiguousarray(a)) for a in arrs),
         n_lanes=N_LANES)
     assert steps == int(jit)
