@@ -165,6 +165,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         32 Mbp chunk, beside their bounds (latency at table (c)'s step),
         K8's fallback split by cause, and the cap sweep on that chunk
         against the phased kernels' loop
+     i. the port's bench (`ibwa_tpu_torch/bench.py`, run after h, with the
+        launches of its commands counted on a line of their own): full
+        scale, one round, on its own inputs (`bench.py`'s recipe, cached
+        under .bench/bench_torch/full/): `aln` hybrid, device-only and
+        native on 16,384 reads (.sai byte-equal), `sampe -R` K5 against
+        the host walks on 50,000 pairs, `samse`, `bwasw` K9 against the
+        host extensions on 1,500 long reads (SAM byte-equal); exit 0, the
+        record's keys, `aln` launching width_pass and search_chunk alone,
+        one each a chunk, and the counters equal to the bench's own count
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
@@ -2330,55 +2339,21 @@ def ext_row_us(dev, design: str = "new") -> float:
     return (ms[1] - ms[0]) / (rows[1] - rows[0]) * 1e3
 
 
-BWASW_EXT = re.compile(
-    r"\[bsw2_aln\] extensions: (\d+) jobs in (\d+) batches on (\S+) \((\d+) "
-    r"launches\), (\d+) on the host \(gate (\d+), under the minimum (\d+), "
-    r"empty (\d+)\); (\d+) jobs in all")
-BWASW_NATIVE = re.compile(r"\[bsw2_aln\] extensions: (\d+) jobs, all on the "
-                          r"host \(engine native; empty (\d+)\)")
-BWASW_STAGES = re.compile(
-    r"\[bsw2_aln\] stages: core ([\d.]+) s, extensions ([\d.]+) s \(device "
-    r"route ([\d.]+) s, host loop ([\d.]+) s\), cigar ([\d.]+) s, all "
-    r"([\d.]+) s")
-
-
 def bwasw_run(fa, fq, engine: str, out: pathlib.Path, dev) -> dict:
-    """One `bwasw --engine <engine>` (`--device dev` on torch), launch
-    counts set to 0 just before and read just after: wall s, SAM bytes,
-    launches, the extension line's numbers and the stage split.  The
-    torch route must launch extend_dp and nothing else, once a batch its
-    glue took, and every job it did not run must be a counted gate,
-    under-minimum or empty one; the native route launches nothing."""
-    from ibwa_tpu_torch import kernels
-    args = ["--engine", engine] + (["--device", str(dev)]
-                                   if engine == "torch" else []) + [
-        str(fa), str(fq)]
-    kernels.reset_launches()
-    wall, err = run_cli("bwasw", args, out)
-    got = dict(kernels.launches)
-    stages = dict(zip(("core", "ext", "device_route", "host_loop", "cigar",
-                       "all"), map(float, BWASW_STAGES.search(err).groups())))
-    res = {"wall": wall, "sam": out.read_bytes(), "launches": got,
-           "stages": stages}
-    if engine == "native":
-        m = BWASW_NATIVE.search(err)
-        if got or not m:
-            raise AssertionError(f"bwasw --engine native launched {got}:\n"
-                                 f"{err[-2000:]}")
-        res.update(total=int(m.group(1)), empty=int(m.group(2)))
-        return res
-    m = BWASW_EXT.search(err)
-    if not m:
-        raise AssertionError(f"bwasw printed no extension line:\n{err}")
-    jobs, batches, _, launches, host, gate, small, empty, total = (
-        int(x) if x.isdigit() else x for x in m.groups())
-    want = {"extend_dp": batches} if dev.type == "cuda" else {}
-    if (got != want or launches != sum(want.values()) or jobs + host != total
-            or host != gate + small + empty):
-        raise AssertionError(f"bwasw on the card: launches {got}, line "
-                             f"{m.group(0)!r}")
-    res.update(jobs=jobs, batches=batches, gate=gate, small=small,
-               empty=empty, total=total)
+    """One `bwasw --engine <engine>` (`--device dev` on torch) through
+    `bench.bwasw`, which checks its launches (extend_dp alone, once a
+    batch, on torch; nothing on native) and that every job the card did not
+    run is a counted gate, under-minimum or empty one: wall s, SAM bytes,
+    launches, the stage split and the extension line's numbers."""
+    from ibwa_tpu_torch import bench
+    r = bench.bwasw(fa, fq, out, str(dev) if engine == "torch" else None)
+    j = r["jobs"]
+    res = {"wall": r["wall"], "sam": out.read_bytes(),
+           "launches": r["launches"], "stages": r["stages"],
+           "total": j["total"], "empty": j["empty"]}
+    if engine == "torch":
+        res.update(jobs=j["device"], batches=j["batches"], gate=j["gate"],
+                   small=j["under_minimum"])
     return res
 
 
@@ -3067,6 +3042,55 @@ def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
     return launches
 
 
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "host_frac",
+              "device_only_vs_ref", "baseline", "device", "rounds"}
+BENCH_KERNELS = {"width_pass", "search_chunk", "lf_walk", "extend_dp"}
+
+
+def run_bench_phase() -> dict:
+    """Phase 4i: `ibwa_tpu_torch.bench` in-process at full scale, one round,
+    on its own inputs: exit 0, the record's keys, `aln` launching the width
+    pass and the chunk search alone, one each a chunk, and the launch
+    counters, set to 0 just before, equal to the bench's own count.
+    Returns those launches."""
+    from ibwa_tpu_torch import bench, kernels
+    kernels.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--rounds", "1"])
+    launches = dict(kernels.launches)
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"the bench exited {rc} with {len(lines)} lines")
+    rec = json.loads(lines[-1])
+    if set(rec) != BENCH_KEYS or rec["device"] != CARD or rec["rounds"] != 1:
+        raise AssertionError(f"the bench's record: {rec}")
+    extra = json.loads((bench.WORK / "full" / "bench_extra.json").read_text())
+    aln = extra["aln"]
+    if aln["chunks"] <= 0 or aln["launches"] != dict.fromkeys(
+            ALN_KERNELS, aln["chunks"]):
+        raise AssertionError(f"the bench's aln launched {aln['launches']} "
+                             f"for {aln['chunks']} chunks")
+    if launches != extra["launches"] or set(launches) != BENCH_KERNELS:
+        raise AssertionError(f"the bench launched {launches}, by its own "
+                             f"count {extra['launches']}")
+    d = aln["device_round"]
+    log(f"4i bench record: {json.dumps(rec)}")
+    log(f"4i bench: aln reads/s hybrid {aln['rates']['hybrid']['median']:.1f},"
+        f" device-only {aln['rates']['device_only']['median']:.1f}, native "
+        f"{aln['rates']['native']['median']:.1f}; device-only round: device "
+        f"ms {d['device_ms']} ({d['device_ms_source']}), busy share "
+        f"{d['busy_share']:.4f}, fallback {d['fallback_reads']} by cause "
+        f"{d['fallback_by_cause']}; sampe -R K5 "
+        f"{extra['sampe']['k5']['median']:.1f}, host walks "
+        f"{extra['sampe']['host']['median']:.1f}; samse "
+        f"{extra['samse']['rate']['median']:.1f}; bwasw K9 "
+        f"{extra['bwasw']['torch']['median']:.1f}, host "
+        f"{extra['bwasw']['native']['median']:.1f}; seconds "
+        f"{extra['seconds']}")
+    return launches
+
+
 def probe_warp_us(dev) -> dict:
     """One warp's marginal time a dependent row fetch (K3 at 32 lanes) on
     the probe's tables b and c, for the latency bounds of 4h alone."""
@@ -3422,7 +3446,15 @@ def main(argv: list[str] | None = None) -> int:
     large_launches = run_large_phase(LARGE_GBP, warp_us, rows, fa, fq, dev,
                                      sass)
     log(f"launches of 4h (the large table's commands): {large_launches}; "
-        f"4h {time.perf_counter() - t4:.0f} s; all phases "
+        f"4h {time.perf_counter() - t4:.0f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 4i. the port's bench, counted on a line of its own
+    t4 = time.perf_counter()
+    bench_launches = run_bench_phase()
+    log(f"launches of 4i (the bench's commands): {bench_launches}; 4i "
+        f"{time.perf_counter() - t4:.0f} s; all phases "
         f"{time.perf_counter() - t_start:.0f} s")
 
     # ---- 5. result lines

@@ -95,6 +95,15 @@ def reset_launches() -> None:
     launches.clear()
 
 
+def launched(fn):
+    """fn() and the launches it made ({name: count}), the counters left
+    counting."""
+    before = collections.Counter(launches)
+    out = fn()
+    return out, {k: v - before[k] for k, v in launches.items()
+                 if v != before[k]}
+
+
 def _sources() -> list[pathlib.Path]:
     return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
 

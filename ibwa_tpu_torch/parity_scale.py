@@ -474,15 +474,15 @@ def run_cli(cmd: str, args: list[str], out: pathlib.Path,
             env: dict | None = None) -> dict:
     """`ibwa_tpu_torch <cmd> ... -f out` in-process with `env` set for the
     call: {wall, err (its stderr, the native library's too), launches
-    (kernel launches it made)}."""
+    (kernel launches it made; the counters keep counting across calls)}."""
     from . import cli, kernels
     saved = {k: os.environ.get(k) for k in env or {}}
     os.environ.update(env or {})
-    kernels.reset_launches()
     t0 = time.perf_counter()
     try:
         with stderr_text() as err:
-            rc = cli.main([cmd, *args, "-f", str(out)])
+            rc, launches = kernels.launched(
+                lambda: cli.main([cmd, *args, "-f", str(out)]))
     finally:
         for k, v in saved.items():
             if v is None:
@@ -493,7 +493,6 @@ def run_cli(cmd: str, args: list[str], out: pathlib.Path,
     if rc != 0:
         raise AssertionError(f"{cmd} {args} exited {rc}:\n"
                              f"{err.getvalue()[-3000:]}")
-    launches = {k: v for k, v in kernels.launches.items() if v}
     LAUNCHES.update(launches)
     return {"wall": wall, "err": err.getvalue(), "launches": launches}
 
@@ -587,12 +586,18 @@ PREFILL = ("rows", "waves", "launches", "refused", "host_walks")
 
 
 def prefill_lines(err: str) -> list[dict]:
+    """The numbers of each `[sai2sam_pe] prefill` line: PREFILL's counts,
+    its seconds `s` and their split (`intervals_s`, `walker_s`,
+    `cache_s`)."""
     import re
     pat = re.compile(r"\[sai2sam_pe\] prefill (\d+) rows in (\d+) waves, "
                      r"(\d+) launches; (\d+) values refused by the cache, "
-                     r"(\d+) host walks since the last batch; ([\d.]+) s")
-    return [dict(zip(PREFILL + ("s",), (*map(int, m.groups()[:5]),
-                                        float(m.group(6)))))
+                     r"(\d+) host walks since the last batch; ([\d.]+) s "
+                     r"\(intervals ([\d.]+) s, walker ([\d.]+) s, cache "
+                     r"([\d.]+) s\)")
+    return [dict(zip(PREFILL + ("s", "intervals_s", "walker_s", "cache_s"),
+                     (*map(int, m.groups()[:5]),
+                      *map(float, m.groups()[5:]))))
             for m in pat.finditer(err)]
 
 
