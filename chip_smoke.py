@@ -95,7 +95,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         of the smoke genome (400-999 bp, 2% substitutions, half
         reverse-complemented; one 10 Mbp chunk, four staged segments, a
         left and a right batch each), `bwasw --engine torch --device cuda`
-        against `--engine native`, three rounds in turns, SAM byte-equal
+        against `--engine native`, two rounds in turns, SAM byte-equal
         in each, rates as median and range, the stage split of each run;
         the torch route launches extend_dp and nothing else, once a batch,
         8 batches, and every job it leaves to the host is a counted gate,
@@ -174,6 +174,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         host extensions on 1,500 long reads (SAM byte-equal); exit 0, the
         record's keys, `aln` launching width_pass and search_chunk alone,
         one each a chunk, and the counters equal to the bench's own count
+     j. `aln` as two processes on the one card (`ibwa_tpu_torch/dist_aln.py`,
+        run after i, the workers' launches counted on a line of their
+        own): scripts/dist_aln.py's 40,000-read corpus (scripts/
+        parity_scale.py's recipe, cached under .bench/dist_aln_torch/),
+        two worker processes on cuda:0 over its two FASTQ shards and one
+        over the whole FASTQ, device-only: exit 0, the merged .sai
+        byte-equal to the one process's and that to --engine native's,
+        every worker launching width_pass and search_chunk once a chunk
+        of its reads and nothing else (its counters set to 0 at its
+        `go`), this process launching nothing; the one round's aggregate
+        rates of one and of two processes
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
@@ -225,6 +236,9 @@ READ_LEN = 100
 N_PAIRS = 131_072               # half of one sampe batch (sampe.BATCH)
 RATE_PAIRS = 32_768             # the pairs sampe's rates are read on
 ROUNDS = 3                      # of every host-clock rate, in turns
+BWASW_ROUNDS = 2                # of bwasw's rates, in turns: two, so
+                                # that the whole smoke stays inside its
+                                # call's time
 B_LANES = 1024
 WALK_PAIRS = 2_097_152          # one wave of the walker
 OLD_DISPATCH = 131_072          # rows a dispatch of K5's first version
@@ -2562,9 +2576,9 @@ def time_extend_batches(batches: list, dev, sass: dict) -> dict:
 
 def run_bwasw_phase(fa, dev) -> dict:
     """K9 on its own (`check_extend_alone`); `bwasw --engine torch --device
-    cuda` against `--engine native` on N_LONG long reads, ROUNDS rounds in
-    turns, SAM byte-equal in each (the first torch run's batches recorded
-    and K9 held and timed on them, `time_extend_batches`); the staged
+    cuda` against `--engine native` on N_LONG long reads, BWASW_ROUNDS
+    rounds in turns, SAM byte-equal in each (the first torch run's batches
+    recorded and K9 held and timed on them, `time_extend_batches`); the staged
     driver against the sequential one with no device route; the stage
     split of each run and the core's sections.  Returns K9's row of the
     kernel table."""
@@ -2588,7 +2602,7 @@ def run_bwasw_phase(fa, dev) -> dict:
         return extend_jobs(*a, **k)
 
     runs = {e: [] for e in routes}
-    for r in range(ROUNDS):
+    for r in range(BWASW_ROUNDS):
         for e in routes if r % 2 == 0 else routes[::-1]:
             if e == "torch" and r == 0:
                 dp.extend_jobs = record
@@ -2611,8 +2625,8 @@ def run_bwasw_phase(fa, dev) -> dict:
                              f"against the host's {n0['total']}, {records} "
                              f"records")
     log(f"bwasw --engine torch --device cuda against --engine native on "
-        f"{N_LONG} reads, {ROUNDS} rounds in turns: SAM byte-equal in every "
-        f"round ({len(n0['sam'])} bytes, {records} records); extensions "
+        f"{N_LONG} reads, {BWASW_ROUNDS} rounds in turns: SAM byte-equal in "
+        f"every round ({len(n0['sam'])} bytes, {records} records); extensions "
         f"{t0['jobs']} jobs in {t0['batches']} batches on the card "
         f"({t0['launches']} launched, nothing else), {t0['gate'] + t0['small'] + t0['empty']} on the host (gate "
         f"{t0['gate']}, under the minimum {t0['small']}, empty "
@@ -3091,6 +3105,50 @@ def run_bench_phase() -> dict:
     return launches
 
 
+def run_dist_phase() -> dict:
+    """Phase 4j: `ibwa_tpu_torch.dist_aln` in-process as a user calls it,
+    two workers on cuda:0 over its 40,000-read corpus: exit 0, the merged
+    .sai equal to one process's and that to native's, each worker's
+    launches one width pass and one chunk search a chunk and nothing else,
+    none in this process.  Returns the workers' launches summed."""
+    from ibwa_tpu_torch import dist_aln, kernels
+    kernels.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = dist_aln.main(["--device", "cuda:0", "--json"])
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"dist_aln exited {rc} with {len(lines)} lines")
+    rec = json.loads(lines[-1])
+    if not (rec["ok"] and rec["merged_sai_identical"]
+            and rec["native_sai_identical"]) or rec["device"] != CARD \
+            or rec["devices"] != ["cuda:0"] * 2 \
+            or rec["reads"] != dist_aln.READS:
+        raise AssertionError(f"dist_aln's record: {json.dumps(rec)[:2000]}")
+    if kernels.launches:
+        raise AssertionError(f"4j's parent launched {dict(kernels.launches)}")
+    launches = collections.Counter()
+    workers = rec["per_process"] + [rec["single_process"]]
+    for w in workers:
+        if w["chunks"] <= 0 or w["launches"] != dict.fromkeys(ALN_KERNELS,
+                                                              w["chunks"]):
+            raise AssertionError(f"4j worker {w['pid']} launched "
+                                 f"{w['launches']} for {w['chunks']} chunks")
+        launches.update(w["launches"])
+    log(f"4j dist_aln: {rec['reads']} reads, merged .sai of 2 processes on "
+        f"cuda:0 byte-equal to one process's and that to native's; reads/s "
+        f"of go to the last exit: 2 processes "
+        f"{rec['aggregate_reads_per_s']:.1f} ({rec['wall_s_2proc']:.3f} s), "
+        f"1 process {rec['aggregate_reads_per_s_1proc']:.1f} "
+        f"({rec['wall_s_1proc']:.3f} s), native in this process "
+        f"{rec['reads'] / rec['wall_s_native']:.1f}; workers (2 + 1): "
+        + "; ".join(f"{w['reads']} reads, {w['seconds']:.3f} s, search_s "
+                    f"{w['search_s']:.3f}, fallback {w['fallback_reads']}, "
+                    f"{w['chunks']} chunks, peak {w['peak_mem_bytes']} bytes"
+                    for w in workers))
+    return dict(launches)
+
+
 def probe_warp_us(dev) -> dict:
     """One warp's marginal time a dependent row fetch (K3 at 32 lanes) on
     the probe's tables b and c, for the latency bounds of 4h alone."""
@@ -3454,6 +3512,12 @@ def main(argv: list[str] | None = None) -> int:
     t4 = time.perf_counter()
     bench_launches = run_bench_phase()
     log(f"launches of 4i (the bench's commands): {bench_launches}; 4i "
+        f"{time.perf_counter() - t4:.0f} s")
+
+    # ---- 4j. aln as two processes on the card, counted on a line of its own
+    t4 = time.perf_counter()
+    dist_launches = run_dist_phase()
+    log(f"launches of 4j (the dist_aln workers'): {dist_launches}; 4j "
         f"{time.perf_counter() - t4:.0f} s; all phases "
         f"{time.perf_counter() - t_start:.0f} s")
 
