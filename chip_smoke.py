@@ -4,6 +4,7 @@ the port end to end.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --large-table GBP   # phase 4h alone, at GBP Gbp
+    python3 chip_smoke.py --input-routes      # phase 4k alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: a CUDA card is required (there is no CPU path)
@@ -107,8 +108,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         operations, and the longest job's rows x one row's chain, measured
         on one job for each design), and on the first left batch in the
         driver's job order against longest query first, in turns; the
-        staged native driver against the sequential one, SAM byte-equal,
-        the core's section timers on in both
+        staged native driver against the sequential one on the first 1,024
+        reads, SAM byte-equal (and to the CLI run's records of them), the
+        core's section timers on in both
      f. several devices (B8; run after c, on the smoke chunk and reads):
         the block table split by rows into 2 and 4 ranges on this card
         (`shard_pair`, each range an allocation of its own); the sharded
@@ -148,7 +150,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         session around `aln`) at ACAP 1024 (the gappy set) and 256 (the
         default) on the same reads; every device `aln`'s overflow fallback
         by cause
-     h. a large table (`ibwa_tpu_torch/index_3gbp.py` at 0.25 Gbp, run
+     h. a large table (`ibwa_tpu_torch/index_3gbp.py` at 0.125 Gbp, run
         after g, with the launches of its commands counted on a line of
         their own): scripts/index_3gbp.py's 32-contig genome generated and
         indexed by the port in a child process (wall, peak RSS, artifact
@@ -160,7 +162,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         several contigs and above 2^26 in the packed text), the table's
         bytes and seconds and the card's peak memory of each command;
         then K5 on sampe's recorded intervals (`k5_on_run`), and K6 and
-        K8 on the first 2,048 reads of end 1 over the 250 MB table bitwise
+        K8 on the first 2,048 reads of end 1 over the 125 MB table bitwise
         against their plain versions and timed in turns with the smoke's
         32 Mbp chunk, beside their bounds (latency at table (c)'s step),
         K8's fallback split by cause, and the cap sweep on that chunk
@@ -185,6 +187,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         of its reads and nothing else (its counters set to 0 at its
         `go`), this process launching nothing; the one round's aggregate
         rates of one and of two processes
+     k. the input routes (`ibwa_tpu_torch/input_routes.py`, run after j,
+        the launches of its commands counted on a line of their own): j's
+        4.6 Mbp genome soft-masked (30% lower case) with 0.3% IUPAC codes
+        and indexed by the port; 65,536 pairs of 100 bp from it, 5% of
+        each end's reads with an N run: `aln` device-only against native
+        on both ends, `samse` from both .sai, `sampe -R` K5 against the
+        host walks; end 1 under `-q 20 -I` (offset-64 qualities with
+        decaying tails) and `-B 5` (a 5-base barcode); BAM of 0x40000 +
+        4,096 records under `-b` (two batches) and its first 32,768 under
+        `-b -1` and `-b -2`; a primary and two alternates of haplotypes
+        with `.remap` CIGARs, `aln` of 32,768 pairs against each and
+        `sampe -R` over the three dbs (one walker a db in DbSet order);
+        every device route byte-equal to the host route, reads on the
+        card in each `aln`, K6 and K8 once a chunk, K5 once a db and wave,
+        0 host walks and 0 refused values; then K5's u32 route above 2^31
+        (both sampled arrays shifted, `DeviceWalker.from_table`) bitwise
+        equal to the native host walk plus 2^31.  A line a route: reads,
+        device reads, fallback by cause, launches, the native search's
+        host threads, seconds
+     Every line of a native rate (4c, 4g, 4i, 4j) names the host threads
+     of the native search it ran with (`native.get_threads()`: the CLI's
+     `-t`, default 1; one in the bench).
      Every kernel must have launched on its path; the step and the switch
      run there as stages of search_chunk, K1's and K2's occ4 code as
      stages of the step, and K2's occ1 code as a stage of width_pass,
@@ -236,6 +260,8 @@ READ_LEN = 100
 N_PAIRS = 131_072               # half of one sampe batch (sampe.BATCH)
 RATE_PAIRS = 32_768             # the pairs sampe's rates are read on
 ROUNDS = 3                      # of every host-clock rate, in turns
+AB_READS = 1024                 # bwasw's staged-sequential A/B (a quarter
+                                # of the reads, for the smoke's time)
 BWASW_ROUNDS = 2                # of bwasw's rates, in turns: two, so
                                 # that the whole smoke stays inside its
                                 # call's time
@@ -269,7 +295,9 @@ EXT_READS = ("new", "first", "first", "new", "new", "first")   # in turns
 EXT_GRIDS = (1, 2, 3, 4, 6)     # blocks an SM K9's grid is timed at
 MESH_IDX = (2, 4)               # row ranges the smoke splits the table in
 MESH_TURNS = ("flat", 2, 4, 4, 2, "flat")   # B8's timing order
-LARGE_GBP = 0.25                # 4h's genome: a 250 MB block table
+LARGE_GBP = 0.125               # 4h's genome: a 125 MB block table, 2.5x
+                                # the L2 (0.25 Gbp until phase 4k came:
+                                # `--large-table 0.25` runs it alone)
 LARGE_TURNS = ("large", "smoke", "smoke", "large", "large", "smoke")
 FIRST_TURNS = ("new", "first", "first", "new")   # K8 and its first version
 PROFILE_LANES = (132, 264, 528, 1056, 2048)      # profile_step --mode lanes
@@ -1579,20 +1607,21 @@ def make_inputs() -> tuple[pathlib.Path, pathlib.Path]:
     return fa, fq
 
 
-def run_cli(cmd: str, args: list[str], out: pathlib.Path
-            ) -> tuple[float, str]:
+def run_cli(cmd: str, args: list[str], out: pathlib.Path,
+            env: dict | None = None) -> tuple[float, str]:
     """`ibwa_tpu_torch <cmd> ... -f out` in-process, as a user calls it
-    (`parity_scale.run_cli`): (wall seconds of the whole command, its
-    stderr)."""
+    (`parity_scale.run_cli`, `env` set for the call): (wall seconds of the
+    whole command, its stderr)."""
     from ibwa_tpu_torch import parity_scale
-    r = parity_scale.run_cli(cmd, args, out)
+    r = parity_scale.run_cli(cmd, args, out, env)
     return r["wall"], r["err"]
 
 
-def run_aln(args: list[str], out: pathlib.Path) -> dict:
+def run_aln(args: list[str], out: pathlib.Path,
+            env: dict | None = None) -> dict:
     """`ibwa_tpu_torch aln ... -f out` in-process; returns its stats line
     plus the wall seconds of the whole command."""
-    wall, err = run_cli("aln", args, out)
+    wall, err = run_cli("aln", args, out, env)
     lines = [ln for ln in err.splitlines() if ln.startswith("[aln] stats ")]
     if not lines:
         raise AssertionError(f"aln printed no stats:\n{err}")
@@ -1772,7 +1801,8 @@ def run_aln_paths(fa, fq) -> tuple[dict, dict]:
             f"reads {dev_reads}, overflow fallback {fb} "
             f"({fb / max(dev_reads + fb, 1):.4f}; by cause "
             f"{r.get('fallback_by_cause')}), host share "
-            f"{r.get('host_reads', 0)}, steps {r.get('iterations', 0)}")
+            f"{r.get('host_reads', 0)}, steps {r.get('iterations', 0)}; "
+            f"the native search on {r['host_threads']} host thread(s)")
     log(f".sai byte-identical to --engine native (device-only, hybrid) in "
         f"each of {ROUNDS} rounds; {n_hit}/{N_READS} reads with hits; "
         f"launches device-only {launches['device_only']}, hybrid "
@@ -1959,14 +1989,18 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
     from ibwa_tpu_torch.fm import walk
     from ibwa_tpu_torch.sam import sampe
     sais = [WORK / f"pairs_{e}.sai" for e in (1, 2)]
+    # the .sai sampe reads: the host search on every core, as a parity
+    # run's (no rate here is the native baseline's)
+    every_core = {"OMP_NUM_THREADS": str(parity_scale.HOST_THREADS)}
     for fq, out in zip(fqs, sais):
         kernels.reset_launches()
-        st = run_aln([str(fa), str(fq), "--device", "cuda"], out)
+        st = run_aln([str(fa), str(fq), "--device", "cuda"], out, every_core)
         log(f"aln --device cuda {fq.name}: {st['reads'] / st['search_s']:.1f} "
             f"reads/s of search wall, {st['reads'] / st['wall_s']:.1f} end "
             f"to end; device reads {st['device_reads']}, fallback "
-            f"{st['fallback_reads']}, host share {st['host_reads']}; "
-            f"launches {dict(kernels.launches)}")
+            f"{st['fallback_reads']}, host share {st['host_reads']} on "
+            f"{st['host_threads']} host thread(s); launches "
+            f"{dict(kernels.launches)}")
     routes = {"native": ["-R", "--engine", "native"],
               "device": ["-R", "--device", "cuda"]}
     args = [str(fa), *map(str, sais), *map(str, fqs)]
@@ -2045,7 +2079,7 @@ def run_sampe_phase(fa, fqs, warp_us: float) -> dict:
     sub_sai = [WORK / f"rate_pairs_{e}.sai" for e in (1, 2)]
     for fq, sfq, sai_ in zip(fqs, sub_fq, sub_sai):
         parity_scale.first_reads(fq, RATE_PAIRS, sfq)
-        run_aln([str(fa), str(sfq), "--device", "cuda"], sai_)
+        run_aln([str(fa), str(sfq), "--device", "cuda"], sai_, every_core)
     args = [str(fa), *map(str, sub_sai), *map(str, sub_fq)]
     walls = {name: [] for name in routes}
     pre_s, splits, want = [], [], None
@@ -2579,11 +2613,12 @@ def run_bwasw_phase(fa, dev) -> dict:
     cuda` against `--engine native` on N_LONG long reads, BWASW_ROUNDS
     rounds in turns, SAM byte-equal in each (the first torch run's batches
     recorded and K9 held and timed on them, `time_extend_batches`); the staged
-    driver against the sequential one with no device route; the stage
+    driver against the sequential one with no device route on the first
+    AB_READS reads; the stage
     split of each run and the core's sections.  Returns K9's row of the
     kernel table."""
     import numpy as np
-    from ibwa_tpu_torch import bwasw_ab
+    from ibwa_tpu_torch import bwasw_ab, parity_scale
     from ibwa_tpu_torch.ops import dp
     checks = check_extend_alone(dev)
     fq = bwasw_ab.make_long_reads(fa, N_LONG,
@@ -2641,17 +2676,25 @@ def run_bwasw_phase(fa, dev) -> dict:
                 for s in (x["stages"] for x in runs[e])))
 
     # staged against sequential, no device route installed, the core's
-    # section timers on in both
-    ab = bwasw_ab.staged_ab(str(fa), str(fq), 1, profile=True)
-    if ab["sam"] != n0["sam"]:
+    # section timers on in both, on the first AB_READS reads: their SAM is
+    # the CLI run's records of those reads (a read's records depend on the
+    # read alone: these have no N, whose drand48 draws would chain them)
+    sub = WORK / f"long_{SEED + 3}_{AB_READS}.fq"
+    parity_scale.first_reads(fq, AB_READS, sub)
+    ab = bwasw_ab.staged_ab(str(fa), str(sub), 1, profile=True)
+    names = set(parity_scale.fastq_records(sub))
+    want = b"".join(ln + b"\n" for ln in n0["sam"].splitlines()
+                    if ln[:1] == b"@" or ln.split(b"\t", 1)[0] in names)
+    if ab["sam"] != want:
         raise AssertionError("bwasw: the staged driver's SAM differs from "
                              "the CLI run's")
     fmt = lambda x: " / ".join(f"{x[k]:.4f}" for k in bwasw_ab.STAGES
                                + bwasw_ab.CORE)
     walls = [ab[k][0]["wall_s"] for k in ("sequential", "staged")]
-    log(f"bwasw --engine native sequential against staged, in turns, no "
-        f"device route, the core's section timers on in both: SAM "
-        f"byte-equal; wall {walls[0]:.3f} s against {walls[1]:.3f} s; "
+    log(f"bwasw --engine native sequential against staged on the first "
+        f"{AB_READS} reads, in turns, no device route, the core's section "
+        f"timers on in both: SAM byte-equal (and to the CLI run's); wall "
+        f"{walls[0]:.3f} s against {walls[1]:.3f} s; "
         f"stages (core / extensions / device route / host loop / cigar / "
         f"all; the core's connectivity prepass / cell fill / hit save, s) "
         f"{fmt(ab['sequential'][0])} against {fmt(ab['staged'][0])}")
@@ -2836,6 +2879,20 @@ def aln_summaries(obj, path: str = ""):
             yield from aln_summaries(v, f"{path}/{i}")
 
 
+def host_threads_of(obj):
+    """Every `host_threads` inside a report (the `[aln] stats` of each
+    `aln` it ran)."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if k == "host_threads":
+                yield v
+            else:
+                yield from host_threads_of(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from host_threads_of(v)
+
+
 def run_scale_phase(warp_us: float, rows: dict) -> dict:
     """Phase 4g: every configuration of `ibwa_tpu_torch/parity_scale.py`
     at full scale on the card (it raises on the first inequality), then
@@ -2875,7 +2932,10 @@ def run_scale_phase(warp_us: float, rows: dict) -> dict:
                        **st["fallback_by_cause"]}
         say(f"aln {path}: overflow fallback {st['fallback_reads']} of "
             f"{st['device_reads'] + st['fallback_reads']} device reads, by "
-            f"cause {st['fallback_by_cause']}")
+            f"cause {st['fallback_by_cause']}; the native search on "
+            f"{st['host_threads']} host thread(s)")
+    say(f"host threads of the native search in every aln of 4g, native "
+        f"runs included: {sorted(set(host_threads_of(res)))}")
 
     # K5 on repeat_pe's intervals, thousands of rows wide
     calls = res["repeat_pe"]["sampe"].pop("_calls")
@@ -3057,7 +3117,8 @@ def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
 
 
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "host_frac",
-              "device_only_vs_ref", "baseline", "device", "rounds"}
+              "device_only_vs_ref", "baseline", "device", "rounds",
+              "host_threads"}
 BENCH_KERNELS = {"width_pass", "search_chunk", "lf_walk", "extend_dp"}
 
 
@@ -3077,7 +3138,8 @@ def run_bench_phase() -> dict:
     if rc != 0 or not lines:
         raise AssertionError(f"the bench exited {rc} with {len(lines)} lines")
     rec = json.loads(lines[-1])
-    if set(rec) != BENCH_KEYS or rec["device"] != CARD or rec["rounds"] != 1:
+    if set(rec) != BENCH_KEYS or rec["device"] != CARD or rec["rounds"] != 1 \
+            or rec["host_threads"] != 1:
         raise AssertionError(f"the bench's record: {rec}")
     extra = json.loads((bench.WORK / "full" / "bench_extra.json").read_text())
     aln = extra["aln"]
@@ -3092,8 +3154,10 @@ def run_bench_phase() -> dict:
     log(f"4i bench record: {json.dumps(rec)}")
     log(f"4i bench: aln reads/s hybrid {aln['rates']['hybrid']['median']:.1f},"
         f" device-only {aln['rates']['device_only']['median']:.1f}, native "
-        f"{aln['rates']['native']['median']:.1f}; device-only round: device "
-        f"ms {d['device_ms']} ({d['device_ms_source']}), busy share "
+        f"{aln['rates']['native']['median']:.1f}, the native search on "
+        f"{rec['host_threads']} host thread(s) in every route; device-only "
+        f"round: device ms {d['device_ms']} ({d['device_ms_source']}), "
+        f"busy share "
         f"{d['busy_share']:.4f}, fallback {d['fallback_reads']} by cause "
         f"{d['fallback_by_cause']}; sampe -R K5 "
         f"{extra['sampe']['k5']['median']:.1f}, host walks "
@@ -3141,12 +3205,50 @@ def run_dist_phase() -> dict:
         f"{rec['aggregate_reads_per_s']:.1f} ({rec['wall_s_2proc']:.3f} s), "
         f"1 process {rec['aggregate_reads_per_s_1proc']:.1f} "
         f"({rec['wall_s_1proc']:.3f} s), native in this process "
-        f"{rec['reads'] / rec['wall_s_native']:.1f}; workers (2 + 1): "
+        f"{rec['reads'] / rec['wall_s_native']:.1f} on "
+        f"{rec['native_host_threads']} host thread(s); workers (2 + 1): "
         + "; ".join(f"{w['reads']} reads, {w['seconds']:.3f} s, search_s "
-                    f"{w['search_s']:.3f}, fallback {w['fallback_reads']}, "
-                    f"{w['chunks']} chunks, peak {w['peak_mem_bytes']} bytes"
+                    f"{w['search_s']:.3f}, fallback {w['fallback_reads']} on "
+                    f"{w['host_threads']} host thread(s), {w['chunks']} "
+                    f"chunks, peak {w['peak_mem_bytes']} bytes"
                     for w in workers))
     return dict(launches)
+
+
+def run_input_phase() -> dict:
+    """Phase 4k: `ibwa_tpu_torch.input_routes` in-process at full scale
+    (it raises on the first inequality): every route equal, each aln
+    route's device run with reads on the card and one width pass and one
+    chunk search a chunk, each sampe route's lf_walk once a wave, and the
+    launch counters, set to 0 just before, equal to the routes' own
+    counts (the 2^31 check's launches are a check's, not counted).  A
+    line a route.  Returns the routes' launches."""
+    from ibwa_tpu_torch import input_routes, kernels
+    kernels.reset_launches()
+    recs = input_routes.run(device="cuda", scale="full",
+                            work=input_routes.WORK,
+                            say=lambda msg: log(f"4k {msg}"))
+    launches = dict(kernels.launches)
+    want = collections.Counter()
+    for r in recs:
+        if not r["equal"]:
+            raise AssertionError(f"4k {r['route']} is not equal")
+        if r["route"] in input_routes.ALN_ROUTES and (
+                r["device_reads"] <= 0 or r["launches"] != dict.fromkeys(
+                    ALN_KERNELS, r["chunks"])):
+            raise AssertionError(f"4k {r['route']}: {r['device_reads']} "
+                                 f"device reads, launches {r['launches']} "
+                                 f"for {r['chunks']} chunks")
+        if r["route"].startswith("sampe") and (
+                r["launches"] != {"lf_walk": r["waves"]} or r["refused"]
+                or r["host_walks"] or r["device_rows"] <= 0):
+            raise AssertionError(f"4k {r['route']}: {json.dumps(r)}")
+        want.update(r["launches"])
+    if [r["route"] for r in recs] != list(input_routes.ROUTES) \
+            or launches != dict(want):
+        raise AssertionError(f"4k launched {launches}, by the routes' own "
+                             f"count {dict(want)}")
+    return launches
 
 
 def probe_warp_us(dev) -> dict:
@@ -3290,7 +3392,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="run phase 4h alone at GBP Gbp (after the build, "
                          "the smoke's inputs and the probe's one-warp step "
                          "on tables b and c)")
-    large = ap.parse_args(argv).large_table
+    ap.add_argument("--input-routes", action="store_true",
+                    help="run phase 4k alone (after the build)")
+    args = ap.parse_args(argv)
+    large = args.large_table
     import torch
     if not torch.cuda.is_available():
         print("[smoke] no CUDA device: this check runs on the card only",
@@ -3328,6 +3433,19 @@ def main(argv: list[str] | None = None) -> int:
             what = line.split(' : ')[-1].strip()
             ptxas.setdefault(entry, []).append(what)
             log(f"  ptxas {entry}: {what}")
+
+    if args.input_routes:       # 4k alone
+        t4 = time.perf_counter()
+        launches = run_input_phase()
+        log(f"launches of 4k (the input routes' commands): {launches}; 4k "
+            f"{time.perf_counter() - t4:.0f} s; all "
+            f"{time.perf_counter() - t_start:.0f} s")
+        print(smi)
+        print(json.dumps({"input_routes": launches}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 3. kernel vs plain version (K2 and K5 need the aln path's index)
     fa, fq = make_inputs()
@@ -3502,7 +3620,7 @@ def main(argv: list[str] | None = None) -> int:
     # ---- 4h. a large table, counted on a line of their own
     t4 = time.perf_counter()
     large_launches = run_large_phase(LARGE_GBP, warp_us, rows, fa, fq, dev,
-                                     sass)
+                                     sass, rounds=1)
     log(f"launches of 4h (the large table's commands): {large_launches}; "
         f"4h {time.perf_counter() - t4:.0f} s")
     gc.collect()
@@ -3518,7 +3636,13 @@ def main(argv: list[str] | None = None) -> int:
     t4 = time.perf_counter()
     dist_launches = run_dist_phase()
     log(f"launches of 4j (the dist_aln workers'): {dist_launches}; 4j "
-        f"{time.perf_counter() - t4:.0f} s; all phases "
+        f"{time.perf_counter() - t4:.0f} s")
+
+    # ---- 4k. the input routes, counted on a line of their own
+    t4 = time.perf_counter()
+    input_launches = run_input_phase()
+    log(f"launches of 4k (the input routes' commands): {input_launches}; "
+        f"4k {time.perf_counter() - t4:.0f} s; all phases "
         f"{time.perf_counter() - t_start:.0f} s")
 
     # ---- 5. result lines

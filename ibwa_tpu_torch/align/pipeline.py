@@ -21,6 +21,7 @@ import sys
 import time
 from typing import BinaryIO
 
+from .. import native
 from ..fm.fmindex import FmIndex
 from ..index.builder import load_index
 from ..io import sai
@@ -58,7 +59,8 @@ def aln_to_stream(prefix: str, fq_path: str, opt: GapOpt, out: BinaryIO,
     write the .sai stream to `out`; returns the read count.  The torch
     engine prints a line a batch (its host share, overflow fallback and
     its split by cause, and arena size); the run ends with an `[aln]
-    stats {json}` line on stderr."""
+    stats {json}` line on stderr (`host_threads`: the native search's
+    threads, on the torch and native engines)."""
     if engine not in ("torch", "native", "ref"):
         raise ValueError(f"unknown engine {engine!r}")
     fms = (FmIndex(load_index(prefix, 0)), FmIndex(load_index(prefix, 1)))
@@ -99,8 +101,12 @@ def aln_to_stream(prefix: str, fq_path: str, opt: GapOpt, out: BinaryIO,
         if eng is not None:
             eng.close()
     # one machine-readable summary line: search wall time (index and
-    # read loading excluded) and the device engine's counters
+    # read loading excluded), the native search's host threads (the torch
+    # engine's host share and fallback run there too) and the device
+    # engine's counters
     summary = {"engine": engine, "reads": total, "search_s": search_s,
+               **({"host_threads": native.get_threads()}
+                  if engine != "ref" else {}),
                **(eng.stats if eng is not None else {})}
     print(f"[aln] stats {json.dumps(summary)}", file=sys.stderr)
     return total

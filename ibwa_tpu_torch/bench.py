@@ -20,8 +20,13 @@ order reversed every other round): `hybrid` (the adaptive host share: the
 headline), `device_only` (an engine of its own with `host_frac = 0`) and
 `native` (`native_align_batch` on one host thread, the baseline: the
 reference binary's `aln -t 1` is not part of this repository, and the
-native search's `.sai` is the reference's by the parity suite).  A rate is
-reads / the wall of one call.  In every round both device routes' hits
+native search's `.sai` is the reference's by the parity suite).  The
+native search runs on one host thread in every route, the hybrid's host
+share and the overflow fallback too, as a default `aln` (`-t 1`) does:
+`native.set_threads(1)` before the first call, whatever loaded the library
+first, the count read back into the record (`host_threads`) and the
+setting before restored at the end.  A rate is reads / the wall of one
+call.  In every round both device routes' hits
 encode to `.sai` bytes equal to native's.  Then one more device-only round
 under the profiler: its counters, the device ms and launches of
 `width_pass` and `search_chunk` (one each a chunk) and the busy share (their
@@ -41,7 +46,8 @@ every round, with the extension job counts and the stage split.
 stderr carries a log line a measurement, each naming the card as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives it;
 `<work>/bench_extra.json` holds every number; stdout's last line is
-`bench.py`'s record plus `baseline`, `device` and `rounds`.  Any
+`bench.py`'s record plus `baseline`, `device`, `rounds` and
+`host_threads`.  Any
 inequality raises and no record is printed.  With no CUDA device it exits
 2 unless `--device cpu` is given (the kernels' plain versions; `device` is
 then "cpu" and no device time is measured).
@@ -69,6 +75,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 WORK = REPO / ".bench" / "bench_torch"
 READ_LEN = 100
 ROUNDS = 5
+HOST_THREADS = 1    # of the native search in every route: the CLI's -t
 ALN_ROUTES = ("hybrid", "device_only", "native")
 ALN_KERNELS = ("width_pass", "search_chunk")
 TRACE_TRIES, TRACE_PAUSE_S = 4, 0.25   # profiler sessions, and the pause
@@ -583,17 +590,25 @@ def run(device: str, scale: str, rounds: int, work: pathlib.Path,
     inequality."""
     if rounds < 1:
         raise ValueError(f"rounds must be at least 1, not {rounds}")
+    from . import native
     sc = SCALES[scale]
     t0 = time.perf_counter()
     inp = ensure_inputs(work, sc, say)
     inputs_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    aln = aln_rates(inp, device, rounds, say)
-    aln_s = time.perf_counter() - t1
-    stages = stage_rates(inp, sc, work, device, rounds, say)
+    before = native.set_threads(HOST_THREADS)
+    try:
+        threads = native.get_threads()
+        say(f"the native search on {threads} host thread(s)")
+        t1 = time.perf_counter()
+        aln = aln_rates(inp, device, rounds, say)
+        aln_s = time.perf_counter() - t1
+        stages = stage_rates(inp, sc, work, device, rounds, say)
+    finally:
+        native.set_threads(before)
     launches = collections.Counter(aln["launches"])
     launches.update(stages.pop("launches"))
-    return {"scale": scale, "device": device, "rounds": rounds, "aln": aln,
+    return {"scale": scale, "device": device, "rounds": rounds,
+            "host_threads": threads, "aln": aln,
             **stages, "launches": dict(launches),
             "seconds": {"inputs": inputs_s, "aln": aln_s,
                         **stages.pop("seconds"),
@@ -601,13 +616,15 @@ def run(device: str, scale: str, rounds: int, work: pathlib.Path,
 
 
 def record(res: dict, card: str) -> dict:
-    """bench.py's record, with `baseline`, `device` and `rounds`."""
+    """bench.py's record, with `baseline`, `device`, `rounds` and
+    `host_threads`."""
     med = {r: res["aln"]["rates"][r]["median"] for r in ALN_ROUTES}
     return {"metric": "aln_reads_per_s_per_chip", "value": med["hybrid"],
             "unit": "reads/s", "vs_baseline": med["hybrid"] / med["native"],
             "host_frac": res["aln"]["host_frac"],
             "device_only_vs_ref": med["device_only"] / med["native"],
-            "baseline": "native", "device": card, "rounds": res["rounds"]}
+            "baseline": "native", "device": card, "rounds": res["rounds"],
+            "host_threads": res["host_threads"]}
 
 
 def main(argv: list[str] | None = None) -> int:

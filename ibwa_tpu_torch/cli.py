@@ -52,9 +52,10 @@ def cmd_aln(argv: list[str]) -> int:
     ap.add_argument("-R", type=int, default=None, help="max equally-best")
     ap.add_argument("-q", type=int, default=None, help="trim quality")
     ap.add_argument("-N", action="store_true", help="non-iterative mode")
-    ap.add_argument("-t", type=int, default=1,
-                    help="host threads (sets OMP_NUM_THREADS, as "
-                         "ibwa_tpu aln does)")
+    ap.add_argument("-t", type=int, default=None,
+                    help="host threads of the native search (the hybrid's "
+                         "host share, the overflow fallback, --engine "
+                         "native) [OMP_NUM_THREADS if set, else 1]")
     ap.add_argument("-c", action="store_true", help="color-space reads")
     ap.add_argument("-b", action="store_true", help="BAM input")
     ap.add_argument("-B", type=int, default=0, help="barcode length")
@@ -104,10 +105,7 @@ def cmd_aln(argv: list[str]) -> int:
     if args.N:
         opt.mode |= BWA_MODE_NONSTOP
         opt.max_top2 = 0x7FFFFFFF
-    opt.n_threads = args.t
-    if args.t > 0:
-        import os
-        os.environ.setdefault("OMP_NUM_THREADS", str(args.t))
+    opt.n_threads = 1 if args.t is None else args.t
     if args.c:
         opt.mode &= ~0x02  # clear BWA_MODE_COMPREAD (bwtaln.c:262)
     for on, bit in ((args.b, 0x20), (args.b0, 0x40), (args.b1, 0x80),
@@ -116,14 +114,29 @@ def cmd_aln(argv: list[str]) -> int:
             opt.mode |= bit
     if args.B:
         opt.mode |= args.B << 24
+    # -t, else OMP_NUM_THREADS, else 1, for this command only; set in the
+    # library, it holds whatever loaded the library first (OpenMP reads
+    # OMP_NUM_THREADS once, at the load)
+    from . import native
+    before = native.set_threads(
+        _env_threads() if args.t is None else args.t)
     out = open(args.f, "wb") if args.f else sys.stdout.buffer
     try:
         aln_to_stream(args.prefix, args.fastq, opt, out, engine=args.engine,
                       device=args.device, n_idx=args.idx)
     finally:
+        native.set_threads(before)
         if args.f:
             out.close()
     return 0
+
+
+def _env_threads() -> int:
+    """OMP_NUM_THREADS' first count (it may be a list, one a nesting
+    level), or 1 when it is unset or not a count."""
+    import os
+    first = os.environ.get("OMP_NUM_THREADS", "").split(",")[0].strip()
+    return int(first) if first.isdigit() and int(first) > 0 else 1
 
 
 def cmd_samse(argv: list[str]) -> int:

@@ -269,6 +269,7 @@ def worker(pid: int, prefix: str, fq: str, out: str, device: str) -> dict:
             "fallback_reads": stats["fallback_reads"],
             "fallback_by_cause": stats["fallback_by_cause"],
             "host_reads": stats["host_reads"],
+            "host_threads": stats["host_threads"],
             "host_share": [b["host_share"] for b in stats["batches"]],
             "chunks": chunks, "launches": stats["launches"],
             "device": str(dev),
@@ -415,6 +416,7 @@ def dist_run(inp: dict, n_reads: int, n_procs: int, devices: list[str],
              card: str, d: pathlib.Path, say=log) -> dict:
     """The script's run: P workers over P shards, one worker over the
     whole FASTQ, the merge and the native .sai.  Returns the record."""
+    from . import native
     split = run_split(inp, split_fastq(inp["fq"], n_procs, d / f"p{n_procs}"),
                       devices, DEVICE_ONLY)
     say(f"{n_procs} processes on {devices}: {split['wall']:.3f} s, "
@@ -434,6 +436,7 @@ def dist_run(inp: dict, n_reads: int, n_procs: int, devices: list[str],
             "native_sai_identical": native_ok,
             "wall_s_2proc": split["wall"], "wall_s_1proc": single["wall"],
             "wall_s_native": native_s,
+            "native_host_threads": native.get_threads(),
             "aggregate_reads_per_s": split["aggregate_reads_per_s"],
             "aggregate_reads_per_s_1proc": single["aggregate_reads_per_s"],
             "per_process": split["per_process"],

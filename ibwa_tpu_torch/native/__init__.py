@@ -186,8 +186,26 @@ def load() -> ctypes.CDLL:
             u32p, ctypes.c_uint32, u32p, ctypes.c_uint32, u32p,
             ctypes.c_uint32, u8p, u8p, i64p, i32p, i32p, i32p, i32p,
             ctypes.c_int32, u32p, ctypes.c_int32, i32p]
+        lib.ibwa_set_threads.argtypes = [ctypes.c_int32]
+        lib.ibwa_set_threads.restype = ctypes.c_int32
+        lib.ibwa_get_threads.argtypes = []
+        lib.ibwa_get_threads.restype = ctypes.c_int32
         _lib = lib
         return lib
+
+
+def set_threads(n: int) -> int:
+    """Host threads of the native batch search (`match_gap_batch`) from
+    now on, whichever thread calls it and whatever loaded the library
+    first; n <= 0 gives the choice back to OpenMP (OMP_NUM_THREADS as read
+    at the library's load, else every core).  Returns the setting before
+    (0: OpenMP's)."""
+    return int(load().ibwa_set_threads(int(n)))
+
+
+def get_threads() -> int:
+    """The host threads the native batch search runs on now."""
+    return int(load().ibwa_get_threads())
 
 
 def _u32(a: np.ndarray) -> ctypes.POINTER:
@@ -488,7 +506,8 @@ def match_gap_batch(fm_fwd, fm_rev, seqs: list[np.ndarray],
                     seed_lens: np.ndarray, opt, cap: int = 250
                     ) -> tuple[np.ndarray, np.ndarray]:
     """Batched host gapped search (bwt_match_gap semantics) over the
-    interleaved FM layouts; OpenMP-parallel over reads.
+    interleaved FM layouts; OpenMP-parallel over reads on `get_threads()`
+    threads.
 
     Returns (hits uint32[n, cap, 4], counts int32[n]); count -1 means the
     per-read hit capacity overflowed (caller retries via the emulator)."""

@@ -13,6 +13,9 @@
 //
 // Everything is exposed with a C ABI and driven from Python via ctypes.
 
+#include <omp.h>
+
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <memory>
@@ -1433,7 +1436,26 @@ int32_t ibwa_match_gap(const uint32_t* itl_fwd, uint32_t primary_fwd,
   return n_hits;
 }
 
-// Batch entry point with optional OpenMP parallelism over reads.
+// The host threads of the batch search.  omp_set_num_threads would set
+// only the calling thread's count (an OpenMP ICV is per thread: the device
+// engine calls the search from a pool thread), and that count is also the
+// one torch's own OpenMP regions read on the thread; so the library keeps
+// its own count and hands it to its parallel loop.  0 leaves the choice to
+// OpenMP (OMP_NUM_THREADS as read when the library loaded, else the cores).
+static std::atomic<int32_t> g_host_threads{0};
+
+// Returns the setting before.
+int32_t ibwa_set_threads(int32_t n) {
+  return g_host_threads.exchange(n > 0 ? n : 0);
+}
+
+int32_t ibwa_get_threads() {
+  const int32_t n = g_host_threads;
+  return n > 0 ? n : omp_get_max_threads();
+}
+
+// Batch entry point with OpenMP parallelism over reads, on
+// ibwa_get_threads() threads.
 void ibwa_match_gap_batch(const uint32_t* itl_fwd, uint32_t primary_fwd,
                           const uint32_t* itl_rev, uint32_t primary_rev,
                           const uint32_t* l2, uint32_t seq_len,
@@ -1443,7 +1465,7 @@ void ibwa_match_gap_batch(const uint32_t* itl_fwd, uint32_t primary_fwd,
                           const int32_t* seed_lens, const int32_t* optv,
                           int32_t n_reads, uint32_t* out, int32_t cap,
                           int32_t* out_n) {
-#pragma omp parallel for schedule(dynamic, 1)
+#pragma omp parallel for schedule(dynamic, 1) num_threads(ibwa_get_threads())
   for (int32_t r = 0; r < n_reads; ++r) {
     out_n[r] = ibwa_match_gap(
         itl_fwd, primary_fwd, itl_rev, primary_rev, l2, seq_len,

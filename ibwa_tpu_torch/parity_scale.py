@@ -82,6 +82,9 @@ MIXED_LENS = (36, 76, 100, 150)    # aln_options' mixed lengths
 PRIMARY_SHARE = 0.75               # iterative_remap's pairs on the primary
 HAP_LEN, EXACT_LEN = 50_000, 20_000
 ROUNDS = 3                         # of every host-clock rate, in turns
+HOST_THREADS = os.cpu_count() or 1  # of aln's native search: a parity
+                                    # run's host route is a reference for
+                                    # bytes, not a rate
 WORK = pathlib.Path(__file__).resolve().parent.parent / ".bench" / \
     "parity_scale_torch"
 CONFIGS = ("ecoli_seam", "repeat_pe", "iterative_remap", "aln_options")
@@ -262,12 +265,16 @@ def write_fasta(path: pathlib.Path, contigs) -> None:
                 f.write(seq[full:].tobytes() + b"\n")
 
 
-def write_fastq(path: pathlib.Path, prefix: bytes, reads) -> None:
-    """reads: uint8 rows (or a list of arrays), named prefix + index."""
+def write_fastq(path: pathlib.Path, prefix: bytes, reads,
+                quals=None) -> None:
+    """reads: uint8 rows (or a list of arrays), named prefix + index;
+    quals: their qualities as ASCII rows, each base 'I' without them."""
+    if quals is None:
+        quals = (b"I" * len(r) for r in reads)
     with open(path, "wb") as f:
         f.write(b"".join(b"@%s%d\n%s\n+\n%s\n" % (prefix, i, r.tobytes(),
-                                                  b"I" * len(r))
-                         for i, r in enumerate(reads)))
+                                                  bytes(q))
+                         for i, (r, q) in enumerate(zip(reads, quals))))
 
 
 def substitute(rng, reads: np.ndarray) -> None:
@@ -412,6 +419,12 @@ def remap_inputs(work: pathlib.Path, sc: Scale, say=log) -> dict:
     return p
 
 
+def fasta_bases(fa: pathlib.Path) -> np.ndarray:
+    """Every contig's bases of a FASTA file, one uint8 array."""
+    return np.frombuffer(b"".join(ln.rstrip(b"\n") for ln in open(fa, "rb")
+                                  if ln[:1] != b">"), dtype=np.uint8)
+
+
 def fasta_len(fa: pathlib.Path) -> int:
     """Bases of a FASTA file (every contig)."""
     return sum(len(ln) - 1 for ln in open(fa, "rb") if ln[:1] != b">")
@@ -501,12 +514,18 @@ def aln(fa, fq, out: pathlib.Path, route: str, device: str,
         opts: list[str] = ()) -> dict:
     """One `aln` run by route: "native" (--engine native), "device_only"
     (IBWA_HOST_FRAC=0) or "hybrid" (the adaptive host share).  Returns its
-    `[aln] stats` with the wall, the launches and the batches."""
+    `[aln] stats` with the wall, the launches and the batches.  Every
+    route runs the native search (native, the hybrid's host share, the
+    fallback) on HOST_THREADS host threads (OMP_NUM_THREADS for the
+    command, which `aln` without -t takes; -t would change the .sai
+    header's thread field)."""
     args = [*opts, str(fa), str(fq)]
+    env = {"OMP_NUM_THREADS": str(HOST_THREADS)}
     if route == "native":
-        r = run_cli("aln", args + ["--engine", "native"], out)
+        r = run_cli("aln", args + ["--engine", "native"], out, env)
     else:
-        env = {"IBWA_HOST_FRAC": "0"} if route == "device_only" else {}
+        if route == "device_only":
+            env["IBWA_HOST_FRAC"] = "0"
         r = run_cli("aln", args + ["--device", device], out, env)
     line = [ln for ln in r["err"].splitlines()
             if ln.startswith("[aln] stats ")]
@@ -572,7 +591,8 @@ def aln_pair(tag: str, fa, fq, work: pathlib.Path, device: str,
 def aln_summary(st: dict) -> dict:
     """What a report keeps of an aln run."""
     keep = ("reads", "search_s", "wall", "device_reads", "fallback_reads",
-            "fallback_by_cause", "host_reads", "launches", "n_batches")
+            "fallback_by_cause", "host_reads", "launches", "n_batches",
+            "host_threads")
     out = {k: st[k] for k in keep if k in st}
     if "batches" in st:
         out["batches"] = st["batches"]
@@ -889,9 +909,7 @@ def aln_options(sc: Scale, work: pathlib.Path, device: str, say) -> dict:
     first_reads(p["fq"][0], min(sc.option_reads, sc.remap_pairs), fq)
     mixed = work / "mixed.fq"
     if not mixed.exists():
-        genome = np.frombuffer(b"".join(
-            ln.rstrip(b"\n") for ln in open(fa, "rb") if ln[:1] != b">"),
-            dtype=np.uint8)
+        genome = fasta_bases(fa)
         write_fastq(mixed, b"m", sim_mixed(np.random.default_rng(
             [20261102, 1]), genome, sc.mixed_reads))
     runs = {}

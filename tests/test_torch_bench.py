@@ -30,7 +30,8 @@ torch.set_num_threads(1)
 
 TINY = bench.SCALES["tiny"]
 RECORD_KEYS = {"metric", "value", "unit", "vs_baseline", "host_frac",
-               "device_only_vs_ref", "baseline", "device", "rounds"}
+               "device_only_vs_ref", "baseline", "device", "rounds",
+               "host_threads"}
 
 
 def test_inputs_equal_bench_py(tmp_path, monkeypatch):
@@ -64,16 +65,20 @@ def test_inputs_equal_bench_py(tmp_path, monkeypatch):
 def test_tiny_run_without_jax(tmp_path):
     """`--device cpu --scale tiny --rounds 1` with jax, ibwa_tpu and bench
     blocked: the record is the last line, with every key; the extra file
-    holds the three aln routes, sampe, samse and bwasw."""
+    holds the three aln routes, sampe, samse and bwasw.  The native search
+    set to 3 host threads before the run runs on 1 in it (`host_threads`
+    in the record and the extra file) and on 3 again after it."""
     work = tmp_path / "w"
     code = (
         "import sys\n"
         "BLOCKED = ('jax', 'ibwa_tpu', 'bench')\n"
         "for m in BLOCKED:\n"
         "    sys.modules[m] = None\n"
-        "from ibwa_tpu_torch import bench\n"
+        "from ibwa_tpu_torch import bench, native\n"
+        "native.set_threads(3)\n"
         f"rc = bench.main(['--device', 'cpu', '--scale', 'tiny', "
         f"'--rounds', '1', '--work', {str(work)!r}])\n"
+        "assert native.get_threads() == 3, native.get_threads()\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None "
         "and m.split('.')[0] in BLOCKED]\n"
         "assert not bad, bad\n"
@@ -88,8 +93,10 @@ def test_tiny_run_without_jax(tmp_path):
     assert rec["metric"] == "aln_reads_per_s_per_chip"
     assert rec["unit"] == "reads/s" and rec["baseline"] == "native"
     assert rec["device"] == "cpu" and rec["rounds"] == 1
+    assert rec["host_threads"] == 1
     assert rec["value"] > 0 and rec["vs_baseline"] > 0
     extra = json.loads((work / "bench_extra.json").read_text())
+    assert extra["host_threads"] == 1
     rates = extra["aln"]["rates"]
     assert set(rates) == {"hybrid", "device_only", "native"}
     assert rec["value"] == rates["hybrid"]["median"]

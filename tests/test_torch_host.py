@@ -7,6 +7,7 @@ the same inputs: index files byte for byte, reads field by field, hits
 tuple by tuple.  Exact comparison throughout.
 """
 
+import contextlib
 import dataclasses
 import io
 import os
@@ -330,3 +331,56 @@ def test_cli_never_imports_the_jax_package(host_inputs, tmp_path):
     mapped = [ln for ln in pe.read_text().splitlines()
               if ln[0] != "@" and not int(ln.split("\t")[1]) & 4]
     assert len(mapped) > 40
+
+
+def test_aln_threads_hold_after_an_earlier_load(host_inputs, tmp_path):
+    """In a process started with OMP_NUM_THREADS=4 the native search runs
+    on 4 host threads; `native.set_threads(1)` pins it to 1 from any
+    thread; `aln -t 2` through `cli.main`, after that earlier load, runs
+    its search on 2 (its `[aln] stats` line) and gives the 1 back after;
+    `aln` without -t takes OMP_NUM_THREADS, 4; `set_threads(0)` gives the
+    choice back to OpenMP.  The .sai are ibwa_tpu's, the header's thread
+    field -t's (1 without it)."""
+    fa, jfa, fq = host_inputs
+    sai, sai1 = tmp_path / "t2.sai", tmp_path / "t.sai"
+    code = (
+        "import concurrent.futures, contextlib, io, json, sys\n"
+        "for m in ('jax', 'ibwa_tpu', 'bench'):\n"
+        "    sys.modules[m] = None\n"
+        "from ibwa_tpu_torch import cli, native\n"
+        "assert native.get_threads() == 4, native.get_threads()\n"
+        "assert native.set_threads(1) == 0\n"
+        "with concurrent.futures.ThreadPoolExecutor(1) as pool:\n"
+        "    assert pool.submit(native.get_threads).result() == 1\n"
+        "err = io.StringIO()\n"
+        "with contextlib.redirect_stderr(err):\n"
+        f"    rc = cli.main(['aln', '-t', '2', '--engine', 'native', "
+        f"{str(fa)!r}, {str(fq)!r}, '-f', {str(sai)!r}])\n"
+        "line = [ln for ln in err.getvalue().splitlines()\n"
+        "        if ln.startswith('[aln] stats ')][-1]\n"
+        "stats = json.loads(line[len('[aln] stats '):])\n"
+        "assert stats['host_threads'] == 2, stats\n"
+        "assert native.get_threads() == 1, native.get_threads()\n"
+        "err = io.StringIO()\n"
+        "with contextlib.redirect_stderr(err):\n"
+        f"    rc += cli.main(['aln', '--engine', 'native', "
+        f"{str(fa)!r}, {str(fq)!r}, '-f', {str(sai1)!r}])\n"
+        "line = [ln for ln in err.getvalue().splitlines()\n"
+        "        if ln.startswith('[aln] stats ')][-1]\n"
+        "assert json.loads(line[len('[aln] stats '):])['host_threads'] == 4\n"
+        "assert native.set_threads(0) == 1 and native.get_threads() == 4\n"
+        "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="4")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    from ibwa_tpu.align.pipeline import aln_to_stream
+    want = io.BytesIO()
+    with contextlib.redirect_stderr(io.StringIO()):
+        aln_to_stream(str(jfa), str(fq), JGapOpt(n_threads=2), want,
+                      engine="native")
+    assert sai.read_bytes() == want.getvalue()
+    want1 = io.BytesIO()
+    with contextlib.redirect_stderr(io.StringIO()):
+        aln_to_stream(str(jfa), str(fq), JGapOpt(), want1, engine="native")
+    assert sai1.read_bytes() == want1.getvalue() != want.getvalue()
