@@ -5,6 +5,7 @@ the port end to end.
     python3 chip_smoke.py
     python3 chip_smoke.py --large-table GBP   # phase 4h alone, at GBP Gbp
     python3 chip_smoke.py --input-routes      # phase 4k alone
+    python3 chip_smoke.py --tall-table        # phase 4l alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: a CUDA card is required (there is no CPU path)
@@ -206,6 +207,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         equal to the native host walk plus 2^31.  A line a route: reads,
         device reads, fallback by cause, launches, the native search's
         host threads, seconds
+     l. the lifted tables (`ibwa_tpu_torch/tall_table.py`, run after k,
+        the launches of its aln commands counted on a line of their own):
+        the smoke's index with m rows of A put before each strand's BWT,
+        `straddle` (m = 2^31 - 2^24: its rows cross 2^31) and `top`
+        (seq_len' = 2^32 - 2, the most the index admits), no suffix array
+        built; the smoke's 16,384 reads after three reads of A's (their
+        exact hit spans the padding, 2^31 rows and more on top, beside
+        hits of one mismatch): `aln` device-only, hybrid and native,
+        .sai byte-equal, and on straddle `aln --idx 2` over the table
+        split in two on this card; the hits at and above 2^31; the walker
+        (K5) on the run's intervals of at most 256 rows and on 200,000
+        random intervals at and above 2^31, bitwise equal to the native
+        host walk, then timed beside its bounds (`k5_on_run`); K6 and K8
+        on the first 2,048 reads bitwise against their plain versions,
+        the occ bounds the plain versions fetched at and above 2^31
+        counted, timed in turns with the smoke's chunk; K8 at ACAP 1024
+        and iter_cap 6,144 against the phased kernels, every read it keeps
+        (the probes among them) decoded equal to the host search's hits;
+        on straddle the split table's K6 and K8 bitwise against the flat
+        ones.  Every count at and above 2^31 must be above 0
      Every line of a native rate (4c, 4g, 4i, 4j) names the host threads
      of the native search it ran with (`native.get_threads()`: the CLI's
      `-t`, default 1; one in the bench).
@@ -282,6 +303,8 @@ PROBE_TABLES = [("a", 500_000, 128),      # the TPU probe's shape, 256 MB
 TRACE_TRIES, TRACE_PAUSE_S = 4, 0.25   # profiler sessions, and the pause
                                        # before each one after the first
 HBM_BYTES_PER_S = 3.35e12
+HIGH = 1 << 31                  # table rows and values from here on need
+                                # all 32 bits of a bwtint_t (4l)
 INT32_OPS_PER_CLOCK_SM = 64
 INT_OPS_PER_S = INT32_OPS_PER_CLOCK_SM * 132 * 1.98e9   # set in main()
 WARP_ISSUE_PER_CLOCK_SM = 4     # warp instructions: one a scheduler
@@ -298,7 +321,7 @@ MESH_TURNS = ("flat", 2, 4, 4, 2, "flat")   # B8's timing order
 LARGE_GBP = 0.125               # 4h's genome: a 125 MB block table, 2.5x
                                 # the L2 (0.25 Gbp until phase 4k came:
                                 # `--large-table 0.25` runs it alone)
-LARGE_TURNS = ("large", "smoke", "smoke", "large", "large", "smoke")
+TABLE_TURNS = ("table", "smoke", "smoke", "table", "table", "smoke")
 FIRST_TURNS = ("new", "first", "first", "new")   # K8 and its first version
 PROFILE_LANES = (132, 264, 528, 1056, 2048)      # profile_step --mode lanes
 SWEEP = [(acap, cap) for acap in (256, 1024)     # K8's caps on the card
@@ -1213,20 +1236,22 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict, sass: dict
             "_longest": longest}
 
 
-def cap_sweep(fm, chunk: dict, label: str, plain: bool) -> list[dict]:
-    """K8 at every iter_cap x ACAP of SWEEP (`EngineConfig` through
+def cap_sweep(fm, chunk: dict, label: str, plain: bool,
+              settings=SWEEP, must_keep=()) -> list[dict]:
+    """K8 at every (ACAP, iter_cap) of `settings` (`EngineConfig` through
     `dataclasses.replace`; the module's defaults untouched) on a chunk:
     bitwise equal to the plain loop (`plain`; over one lane a read, which
     gives the same hits, flags and causes in the fewest steps) or to the
     phased kernels' loop at the same setting; every read it keeps on the
     card decoded (`engine._decode`) equal to `native_align_batch`'s hits
     for it; its device ms, its fallback split by cause and its longest
-    read.  One dict a setting."""
+    read; every read of `must_keep` kept on the card.  One dict a
+    setting."""
     import numpy as np
     from ibwa_tpu_torch.align import engine
     args, n = chunk["args"], len(chunk["seqs"])
     out = []
-    for acap, cap in SWEEP:
+    for acap, cap in settings:
         cfg = dataclasses.replace(chunk["cfg"], iter_cap=cap, acap=acap)
         t0 = time.perf_counter()
         run = engine.run_search_plain if plain else engine.run_search_phased
@@ -1244,6 +1269,10 @@ def cap_sweep(fm, chunk: dict, label: str, plain: bool) -> list[dict]:
             chunk["fms"], [chunk["seqs"][i] for i in kept],
             [chunk["rseqs"][i] for i in kept], chunk["opt"])
         wrong = [int(i) for i, h in zip(kept, host) if decoded[i] != h]
+        if fb_np[list(must_keep)].any():
+            raise AssertionError(f"{label} iter_cap {cap} ACAP {acap}: "
+                                 f"reads {list(must_keep)} are not all kept "
+                                 f"on the card")
         if wrong:
             raise AssertionError(f"{label} iter_cap {cap} ACAP {acap}: "
                                  f"reads {wrong[:5]} kept on the card "
@@ -1254,13 +1283,17 @@ def cap_sweep(fm, chunk: dict, label: str, plain: bool) -> list[dict]:
                "fallback_share": float(fb_np.mean()),
                "by_cause": cause_split(cause, fb),
                "longest_read": int(it.max()), "kept": len(kept),
+               "kept_with_a_hit_at_or_above_2_31": sum(
+                   any(h.k >= HIGH for h in decoded[i]) for i in kept),
                "reference": "plain loop" if plain else "phased kernels",
                "reference_s": ref_s}
         out.append(row)
         log(f"cap sweep, {label} chunk, iter_cap {cap} ACAP {acap}: bitwise "
             f"equal to the {row['reference']}'s ({ref_s:.1f} s), "
             f"{len(kept)} reads kept on the card, each equal to the host "
-            f"search's hits; device ms {row['ms']:.5f}, longest read "
+            f"search's hits ({row['kept_with_a_hit_at_or_above_2_31']} of "
+            f"them with a hit at or above 2^31); device ms "
+            f"{row['ms']:.5f}, longest read "
             f"{row['longest_read']}, fallback {row['fallback']} "
             f"({row['fallback_share']:.4f}) by cause {row['by_cause']}")
     return out
@@ -2987,6 +3020,127 @@ def chunk_case(fa, fq, dev) -> tuple:
     return build_device_pair(fms[0], fms[1], dev), smoke_chunk(fms, fq, dev)
 
 
+@contextlib.contextmanager
+def fetch_tally():
+    """Count the bounds the plain width pass and step ask occ rows for,
+    inside the block: the pair queries `engine._occ` gives them (K2's
+    entries on a card) are wrapped for the block; each asks the rows of
+    (k - 1, l) of its intervals, its masked lanes' too.  Yields a dict
+    that gets, as the block ends, "occ_bounds" and
+    "occ_bounds_at_or_above_2_31" (not NEG1, the k - 1 of row 0)."""
+    import torch
+    from ibwa_tpu_torch.align import engine
+    from ibwa_tpu_torch.u32 import MASK, NEG1
+    plain = engine._occ
+    seen = []
+
+    def count(k, l):
+        b = torch.stack([(k - 1) & MASK, l])
+        seen.append((b.numel(), ((b >= HIGH) & (b != NEG1)).sum()))
+
+    def counted(fm):
+        occ4, occ1 = plain(fm)
+
+        def occ4_counted(fm_, strand, k, l):
+            count(k, l)
+            return occ4(fm_, strand, k, l)
+
+        def occ1_counted(fm_, strand, k, l, c):
+            count(k, l)
+            return occ1(fm_, strand, k, l, c)
+
+        return occ4_counted, occ1_counted
+
+    out = {}
+    engine._occ = counted
+    try:
+        yield out
+    finally:
+        engine._occ = plain
+        out["occ_bounds"] = sum(n for n, _ in seen)
+        out["occ_bounds_at_or_above_2_31"] = int(sum(h for _, h in seen))
+
+
+def table_chunk_rows(label: str, case: tuple, smoke: tuple, hbm_us: float,
+                     sass: dict, say, tally: bool = False) -> dict:
+    """K6 and K8 on the chunk of `case` (`chunk_case`) bitwise against
+    their plain versions (`big_planes_plain`, the plain loop, whose span
+    of CUDA events is its time), then both timed in turns with the smoke's
+    32 Mbp chunk `smoke` (TABLE_TURNS), beside their bounds; the latency
+    bounds at `hbm_us` a dependent fetch; K8's fallback split by cause.
+    With `tally`, the bounds the plain versions' occ queries asked rows
+    for (`fetch_tally`), and the hits at and above 2^31.  Returns {kernel:
+    row}."""
+    from ibwa_tpu_torch.align import engine
+    fm, chunk = case
+    cfg, args = chunk["cfg"], chunk["args"]
+    seqs, lens, md, hs, ssq, bad = args
+    got = engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
+    plain_w = lambda: engine.big_planes_plain(cfg, fm, seqs, lens, hs, ssq)
+    with (fetch_tally() if tally else contextlib.nullcontext({})) as w_t:
+        want_w = plain_w()
+    err = max_abs_err(got, want_w)
+    if err:
+        raise AssertionError(f"width_pass on {label} chunk: kernel != "
+                             f"plain (max abs err {err})")
+    box = []
+    with (fetch_tally() if tally else contextlib.nullcontext({})) as s_t:
+        plain_span = event_ms(lambda: box.append(engine.run_search_plain(
+            cfg, fm, *args, n_lanes=B_LANES)), 1)
+    want = box[0]
+    seen, (*_, it, counters) = hold_search_chunk(
+        fm, f"{label} chunk against the plain loop", cfg, args, B_LANES, want)
+    c = dict(zip(engine.COUNTERS, counters.tolist()))
+    steps, longest, total = want[3], int(it.max()), c["iterations"]
+    cases = {"table": case, "smoke": smoke}
+    times = {name: {"width_pass": [], "search_chunk": []} for name in cases}
+    for name in TABLE_TURNS:
+        fm_t, ch = cases[name]
+        c_t, a_t = ch["cfg"], ch["args"]
+        times[name]["width_pass"].append(timed_ms(
+            lambda: engine.big_planes(c_t, fm_t, a_t[0], a_t[1], a_t[3],
+                                      a_t[4]), 20)[0])
+        times[name]["search_chunk"].append(time_search_chunk(
+            c_t, fm_t, a_t, 10, 1))
+    w_moved, w_ops, fetches, chain = width_work(cfg, fm, got, args)
+    s_moved, s_ops, s_ins, _ = chunk_work(cfg, fm, want, c, sass["new"])
+    table = {"seq_len": fm.seq_len, "table_bytes": nbytes(fm.blocks),
+             "reads": lens.shape[0], "lanes": B_LANES, "acap": cfg.acap,
+             "max_abs_err": err}
+    if tally:
+        s_t["hits_at_or_above_2_31"] = int(
+            (engine.masked_hits(*want[:3])[:, :, 1] >= HIGH).sum())
+    out = {}
+    for kernel, moved, ops, lat, extra in (
+            ("width_pass", w_moved, w_ops, chain,
+             {"bases_fetched": fetches, "longest_chain": chain,
+              "plain_ms": timed_ms(plain_w, 2)[0], **w_t}),
+            ("search_chunk", s_moved, s_ops, longest,
+             {"steps": steps, "longest_read": longest,
+              "longest_lane": c["longest_lane"], "lane_iterations": total,
+              "fm_rows": c["rows"], "issue_ms": issue_ms(s_ins),
+              "fallback_by_cause": cause_split(want[4], want[2]),
+              "plain_span_ms": plain_span, **s_t})):
+        mine, smoke_ms = times["table"][kernel], times["smoke"][kernel]
+        out[kernel] = r = {
+            **table, "ms": statistics.median(mine), "ms_readings": mine,
+            "smoke_ms_readings": smoke_ms,
+            "ratio": statistics.median(mine) / statistics.median(smoke_ms),
+            **bound(moved, ops), "latency_bound_ms": lat * hbm_us / 1e3,
+            **extra}
+        say(f"{kernel} on {label} table ({r['table_bytes']} bytes, seq_len "
+            f"{fm.seq_len}), {r['reads']} reads on {B_LANES} lanes, ACAP "
+            f"{cfg.acap}: bitwise equal to its plain version; device ms "
+            f"{mine} against the smoke's 32 Mbp chunk {smoke_ms}, in turns "
+            f"{TABLE_TURNS} ({r['ratio']:.3f}x); bound {r['bound_ms']:.5f} "
+            f"({r['bound_by']}, {moved} bytes); latency {lat} x "
+            f"{hbm_us:.3f} us = {r['latency_bound_ms']:.5f} ms"
+            + (f" to {engine.E_UNROLL * r['latency_bound_ms']:.5f}"
+               if kernel == "search_chunk" else "") + f"; {extra}")
+    say(f"search_chunk: {seen}")
+    return out
+
+
 def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
                     sass: dict, rounds: int = ROUNDS,
                     sweep: bool = True) -> dict:
@@ -2997,7 +3151,7 @@ def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
     K5 on sampe's recorded intervals (`k5_on_run`), K6 and K8 on the
     first 2,048 reads of end 1 bitwise against their plain versions
     (`big_planes_plain`, the plain loop), and both timed in turns with
-    the smoke's chunk (LARGE_TURNS), beside their bounds; the latency
+    the smoke's chunk (TABLE_TURNS), beside their bounds; the latency
     bounds at table (c)'s one-warp step (HBM); K8's fallback split by
     cause, and with `sweep` the cap sweep on that chunk against the phased
     kernels' loop (`cap_sweep`: the plain loop at every setting of the
@@ -3045,68 +3199,15 @@ def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
     cases = {"large": chunk_case(res["_paths"]["fa"], res["_paths"]["fqs"][0],
                                  dev),
              "smoke": chunk_case(fa, fq, dev)}
+    got = table_chunk_rows(f"the {gbp} Gbp table's", cases["large"],
+                           cases["smoke"], hbm_us, sass, say)
+    for kernel, r in got.items():
+        rows[kernel]["large_table"] = {"gbp": gbp, **r}
     fm, chunk = cases["large"]
-    cfg, args = chunk["cfg"], chunk["args"]
-    seqs, lens, md, hs, ssq, bad = args
-    got = engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
-    plain_w = lambda: engine.big_planes_plain(cfg, fm, seqs, lens, hs, ssq)
-    err = max_abs_err(got, plain_w())
-    if err:
-        raise AssertionError(f"width_pass on the large table: kernel != "
-                             f"plain (max abs err {err})")
-    plain_run = lambda: engine.run_search_plain(cfg, fm, *args,
-                                                n_lanes=B_LANES)
-    want = plain_run()
-    seen, (*_, it, counters) = hold_search_chunk(
-        fm, f"the {gbp} Gbp table's chunk against the plain loop", cfg, args,
-        B_LANES, want)
-    c = dict(zip(engine.COUNTERS, counters.tolist()))
-    steps, longest, total = want[3], int(it.max()), c["iterations"]
-    times = {name: {"width_pass": [], "search_chunk": []} for name in cases}
-    for name in LARGE_TURNS:
-        fm_t, ch = cases[name]
-        c_t, a_t = ch["cfg"], ch["args"]
-        times[name]["width_pass"].append(timed_ms(
-            lambda: engine.big_planes(c_t, fm_t, a_t[0], a_t[1], a_t[3],
-                                      a_t[4]), 20)[0])
-        times[name]["search_chunk"].append(time_search_chunk(
-            c_t, fm_t, a_t, 10, 1))
-    w_moved, w_ops, fetches, chain = width_work(cfg, fm, got, args)
-    s_moved, s_ops, s_ins, _ = chunk_work(cfg, fm, want, c, sass["new"])
-    table = {"gbp": gbp, "seq_len": fm.seq_len,
-             "table_bytes": nbytes(fm.blocks), "reads": lens.shape[0],
-             "lanes": B_LANES, "acap": cfg.acap, "max_abs_err": err}
-    for kernel, moved, ops, lat, extra in (
-            ("width_pass", w_moved, w_ops, chain,
-             {"bases_fetched": fetches, "longest_chain": chain,
-              "plain_ms": timed_ms(plain_w, 2)[0]}),
-            ("search_chunk", s_moved, s_ops, longest,
-             {"steps": steps, "longest_read": longest,
-              "longest_lane": c["longest_lane"], "lane_iterations": total,
-              "fm_rows": c["rows"], "issue_ms": issue_ms(s_ins),
-              "fallback_by_cause": cause_split(want[4], want[2]),
-              "plain_span_ms": event_ms(plain_run, 1)})):
-        mine, smoke = times["large"][kernel], times["smoke"][kernel]
-        rows[kernel]["large_table"] = r = {
-            **table, "ms": statistics.median(mine), "ms_readings": mine,
-            "smoke_ms_readings": smoke,
-            "ratio": statistics.median(mine) / statistics.median(smoke),
-            **bound(moved, ops), "latency_bound_ms": lat * hbm_us / 1e3,
-            **extra}
-        say(f"{kernel} on the {gbp} Gbp table ({r['table_bytes']} bytes), "
-            f"{r['reads']} reads on {B_LANES} lanes, ACAP {cfg.acap}: "
-            f"bitwise equal to its plain version; device ms {mine} against "
-            f"the smoke's 32 Mbp chunk {smoke}, in turns "
-            f"{LARGE_TURNS} ({r['ratio']:.3f}x); bound {r['bound_ms']:.5f} "
-            f"({r['bound_by']}, {moved} bytes); latency {lat} x "
-            f"{hbm_us:.3f} us = {r['latency_bound_ms']:.5f} ms"
-            + (f" to {engine.E_UNROLL * r['latency_bound_ms']:.5f}"
-               if kernel == "search_chunk" else "") + f"; {extra}")
-    say(f"search_chunk: {seen}")
     if sweep:
         rows["search_chunk"]["large_table"]["cap_sweep"] = cap_sweep(
             fm, chunk, f"{gbp} Gbp", plain=False)
-    del cases, fm, chunk, args, got, want
+    del cases, fm, chunk, got
     gc.collect()
     torch.cuda.empty_cache()
     if not res["under_16gb"]:
@@ -3114,6 +3215,112 @@ def run_large_phase(gbp: float, warp_us: dict, rows: dict, fa, fq, dev,
                              f"memory, above index_3gbp's "
                              f"{index_3gbp.RSS_LIMIT_GB} GB")
     return launches
+
+
+def hold_split(fm, chunk: dict, dev, label: str, say) -> dict:
+    """The chunk's table split by rows in two ranges on this card
+    (`shard_pair`): the sharded K6 and K8 bitwise against the flat ones
+    (planes; hits, counts, flags, causes and the step count, finished as
+    the engine finishes them).  Its launch checks the split table with
+    `shards_ok`."""
+    from ibwa_tpu_torch.align import engine
+    from ibwa_tpu_torch.fm.device import shard_pair
+    cfg, args = chunk["cfg"], chunk["args"]
+    seqs, lens, md, hs, ssq, bad = args
+    split = shard_pair(fm, [dev, dev])
+    flat_big = engine.big_planes(cfg, fm, seqs, lens, hs, ssq)
+    err = max_abs_err(engine.big_planes(cfg, split, seqs, lens, hs, ssq),
+                      flat_big)
+    out_h, nh, fb, it, cause, _ = launch_chunk(cfg, fm, args, 1)
+    want = engine.finish_chunk(out_h.permute(1, 2, 0), nh, fb, it, cause,
+                               B_LANES)
+    text, _ = hold_search_chunk(split, f"{label} table split in two "
+                                f"against the flat one", cfg, args, B_LANES,
+                                want, modes=(1,))
+    if err:
+        raise AssertionError(f"{label}: the split width pass differs from "
+                             f"the flat one (max abs err {err})")
+    say(f"width_pass and search_chunk over {label} table split in two "
+        f"ranges of {split.shard_rows} rows on {dev} (seq_len "
+        f"{fm.seq_len}): bitwise equal to the flat kernels; {text}")
+    return {"seq_len": fm.seq_len, "shard_rows": split.shard_rows,
+            "n_idx": 2, "max_abs_err": err, "equal": True}
+
+
+def run_tall_phase(warp_us: dict, rows: dict, fa, fq, dev,
+                   sass: dict) -> dict:
+    """Phase 4l: the lifted tables of the smoke's 32 Mbp index
+    (`ibwa_tpu_torch/tall_table.py`: `straddle`, its rows across 2^31;
+    `top`, seq_len' = 2^32 - 2) with the smoke's 16,384 reads after the
+    probe reads of A's.  On each lift: aln device-only, hybrid and native
+    (.sai byte-equal; on straddle also `aln --idx 2` over the table split
+    in two on this card), the hits at and above 2^31, the walker on the
+    run's intervals and on random ones at and above 2^31 against the host
+    walk (`tall_table.run`); then K5 on that walker call (`k5_on_run`);
+    K6 and K8 on the first 2,048 reads (the probes among them) bitwise
+    against their plain versions, the plain versions' occ bounds at and
+    above 2^31 counted, timed in turns with the smoke's chunk
+    (`table_chunk_rows`); K8 at ACAP 1024 / iter_cap 6,144 against the
+    phased kernels, every read it keeps equal to the host search's hits
+    (`cap_sweep`: the probes stay on the card there); on straddle the
+    split table's K6 and K8 bitwise against the flat ones (`hold_split`).
+    Every count at and above 2^31 must be above 0.  Adds the readings to
+    the kernel table's rows as `tall_table`; returns the launches of the
+    aln commands."""
+    import torch
+    from ibwa_tpu_torch import tall_table
+    say = lambda msg: log(f"4l {msg}")
+    work = REPO / ".bench" / "tall"
+    work.mkdir(parents=True, exist_ok=True)
+    reads = tall_table.probe_fastq(fq, work / "reads.fq")
+    smoke = chunk_case(fa, fq, dev)
+    hbm_us = warp_us["c"]
+    launches = collections.Counter()
+    for name in tall_table.LIFTS:
+        t0 = time.perf_counter()
+        rec = tall_table.run(str(fa), reads, name, device="cuda", work=work,
+                             split=name == "straddle", say=say)
+        for got in rec["launches"].values():
+            launches.update(got)
+        k5 = k5_on_run(rec.pop("_calls"), hbm_us)
+        rows["lf_walk"].setdefault("tall_table", {})[name] = {
+            "lift": name, "m": rec["m"], **k5, **rec["walk"]}
+        say(f"K5 on the {name} lift's walker call: {k5_text(k5, hbm_us)}")
+        case = chunk_case(rec["_prefix"], reads, dev)
+        got = table_chunk_rows(f"the {name} lift's", case, smoke, hbm_us,
+                               sass, say, tally=True)
+        for kernel, r in got.items():
+            rows[kernel].setdefault("tall_table", {})[name] = {
+                "lift": name, "m": rec["m"], **r}
+        counts = {"K6's occ bounds": got["width_pass"][
+                      "occ_bounds_at_or_above_2_31"],
+                  "K8's occ bounds": got["search_chunk"][
+                      "occ_bounds_at_or_above_2_31"],
+                  "K8's hits": got["search_chunk"]["hits_at_or_above_2_31"]}
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"4l {name}: at or above 2^31 in the "
+                                 f"chunk: {counts}")
+        fm, chunk = case
+        rows["search_chunk"]["tall_table"][name]["wide_caps"] = cap_sweep(
+            fm, chunk, f"the {name} lift's", plain=False,
+            settings=[(1024, 6144)],
+            must_keep=range(len(tall_table.PROBE_READS)))[0]
+        if name == "straddle":
+            held = hold_split(fm, chunk, dev, f"the {name} lift's", say)
+            for kernel in ("width_pass_sharded", "search_chunk_sharded"):
+                rows.setdefault(kernel, {})["tall_table"] = {
+                    "lift": name, **held,
+                    "aln_launches": rec["launches"]["split"]}
+        rows["search_chunk"]["tall_table"][name]["aln"] = {
+            k: rec[k] for k in ("seq_len", "genome_seq_len", "primary",
+                                "seconds", "bytes", "hits",
+                                "hits_at_or_above_2_31", "widest_hit",
+                                "launches", "aln_s")}
+        del case, fm, chunk, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"{name} done in {time.perf_counter() - t0:.1f} s")
+    return dict(launches)
 
 
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "host_frac",
@@ -3394,6 +3601,10 @@ def main(argv: list[str] | None = None) -> int:
                          "on tables b and c)")
     ap.add_argument("--input-routes", action="store_true",
                     help="run phase 4k alone (after the build)")
+    ap.add_argument("--tall-table", action="store_true",
+                    help="run phase 4l alone (after the build, the smoke's "
+                         "inputs and the probe's one-warp step on tables b "
+                         "and c)")
     args = ap.parse_args(argv)
     large = args.large_table
     import torch
@@ -3449,6 +3660,24 @@ def main(argv: list[str] | None = None) -> int:
 
     # ---- 3. kernel vs plain version (K2 and K5 need the aln path's index)
     fa, fq = make_inputs()
+    if args.tall_table:         # 4l alone
+        rows = {name: {} for name in ("width_pass", "search_chunk",
+                                      "lf_walk")}
+        t4 = time.perf_counter()
+        launches = run_tall_phase(probe_warp_us(dev), rows, fa, fq, dev,
+                                  sass_step_loop(info["path"], int(
+                                      os.environ.get("IBWA_DEV_INTV",
+                                                     "64")) >> 4))
+        log(f"launches of 4l (the lifted tables' aln commands): "
+            f"{launches}; 4l {time.perf_counter() - t4:.0f} s; all "
+            f"{time.perf_counter() - t_start:.0f} s")
+        print(smi)
+        print(json.dumps({"tall_table": {
+            name: r["tall_table"] for name, r in rows.items()}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if large is not None:       # 4h alone
         rows = {name: {} for name in ("width_pass", "search_chunk",
                                       "lf_walk")}
@@ -3642,7 +3871,15 @@ def main(argv: list[str] | None = None) -> int:
     t4 = time.perf_counter()
     input_launches = run_input_phase()
     log(f"launches of 4k (the input routes' commands): {input_launches}; "
-        f"4k {time.perf_counter() - t4:.0f} s; all phases "
+        f"4k {time.perf_counter() - t4:.0f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 4l. the lifted tables, counted on a line of their own
+    t4 = time.perf_counter()
+    tall_launches = run_tall_phase(warp_us, rows, fa, fq, dev, sass)
+    log(f"launches of 4l (the lifted tables' aln commands): "
+        f"{tall_launches}; 4l {time.perf_counter() - t4:.0f} s; all phases "
         f"{time.perf_counter() - t_start:.0f} s")
 
     # ---- 5. result lines

@@ -1530,8 +1530,12 @@ class TorchAlnEngine:
                              f"n_idx={n_idx}")
         groups = [devs[i:i + n_idx] for i in range(0, len(devs), n_idx)]
         base = build_device_pair(fms[0], fms[1], "cpu")
-        self.dfms = [shard_pair(base, g) if n_idx > 1 else pair_to(base, g[0])
-                     for g in groups]
+        # the first entry on the CPU keeps the table it was built in (no
+        # copy of a table that may be gigabytes); every other is a copy
+        self.dfms = [shard_pair(base, g) if n_idx > 1
+                     else base if i == 0 and g[0].type == "cpu"
+                     else pair_to(base, g[0])
+                     for i, g in enumerate(groups)]
         self.dfm, self.device = self.dfms[0], self.dfms[0].device
         self.streams = entry_streams(self.dfms)
         # `batches`: one record a batch (its reads, host share, overflow

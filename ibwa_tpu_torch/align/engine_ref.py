@@ -186,8 +186,9 @@ def match_gap(fms: tuple[FmIndex, FmIndex], seq: np.ndarray,
                     best_diff += e.n_gape
                 if not mode_nonstop:
                     max_diff = min(best_diff + 1, max_diff)
-            if score == best_score:
-                best_cnt += l - k + 1
+            if score == best_score:  # an int in bwtgap.c: wraps
+                best_cnt = ((best_cnt + l - k + 1 + 0x80000000)
+                            & 0xFFFFFFFF) - 0x80000000
             elif best_cnt > opt.max_top2:
                 break
             if e.n_gapo:  # tandem-repeat dedup (bwtgap.c:178-182)

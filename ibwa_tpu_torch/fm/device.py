@@ -33,11 +33,10 @@ import os
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, native
 from ..u32 import MASK, NEG1, partial_mask, popcount
 from .fmindex import FmIndex
 
-OCC_INTV = 128
 MAX_SHARDS = 8    # csrc/fm_row.cuh kMaxShards
 
 
@@ -71,57 +70,24 @@ class DeviceFmPair:
         return (self.blocks if self.blocks is not None else self.L2).device
 
 
-def _popcount_bases(words: np.ndarray) -> np.ndarray:
-    """Per-row counts of each base code in a [n, k]-word 2-bit stream
-    (uint32[n, 4]).  Zero padding counts as base 0."""
-    out = np.zeros((words.shape[0], 4), dtype=np.uint32)
-    for c in range(4):
-        x = words ^ np.uint32(0x55555555 * c)
-        t = (~x) & ((~x) >> np.uint32(1)) & np.uint32(0x55555555)
-        bits = np.unpackbits(t.view(np.uint8), axis=-1)
-        out[:, c] = bits.reshape(words.shape[0], -1).sum(axis=1)
-    return out
-
-
-def _rechunk_blocks(ckpt: np.ndarray, words: np.ndarray, seq_len: int,
-                    intv: int) -> np.ndarray:
-    """Re-checkpoint one strand's 128-base layout at `intv`-base rows:
-    uint32[ceil(seq_len/intv), 4 + intv/16].  Sub-block i's checkpoint is
-    the 128-block checkpoint + the counts of the preceding i*intv bases."""
-    sub = OCC_INTV // intv
-    w = intv >> 4
-    n128 = (seq_len + OCC_INTV - 1) // OCC_INTV
-    n_intv = (seq_len + intv - 1) // intv
-    rows = np.zeros((sub * n128, 4 + w), dtype=np.uint32)
-    acc = ckpt[:n128].copy()
-    for i in range(sub):
-        rows[i::sub, :4] = acc
-        rows[i::sub, 4:] = words[:, w * i:w * (i + 1)]
-        if i + 1 < sub:
-            acc = acc + _popcount_bases(words[:, w * i:w * (i + 1)])
-    return np.ascontiguousarray(rows[:n_intv])
-
-
 def build_blocks(fwd: FmIndex, rev: FmIndex, intv: int
                  ) -> tuple[np.ndarray, int]:
     """The two strands' row table, uint32[2*n_blk, 4 + intv/16], and
-    n_blk — byte-equal to `ibwa_tpu.fm.device.build_device_pair`'s."""
+    n_blk — byte-equal to `ibwa_tpu.fm.device.build_device_pair`'s: each
+    strand's 128-base blocks re-checkpointed at `intv`-base rows, a row's
+    checkpoint its block's plus the counts of the block's bases before it.
+    Built by the native library straight from the interleaved streams
+    (`native.build_blocks`), so that the only whole-table array is the
+    result (a table of 2^32 rows is 4 GB at intv 64)."""
     if intv not in (32, 64, 128):
         raise ValueError(f"occ block interval must be 32, 64 or 128: {intv}")
     if fwd.seq_len != rev.seq_len:
         raise ValueError("strand lengths differ")
-    if intv == OCC_INTV:
-        n_blk = (fwd.seq_len + OCC_INTV - 1) // OCC_INTV
-        blocks = np.empty((2 * n_blk, 12), dtype=np.uint32)
-        blocks[:n_blk, :4] = fwd.ckpt[:n_blk]
-        blocks[:n_blk, 4:] = fwd.words
-        blocks[n_blk:, :4] = rev.ckpt[:n_blk]
-        blocks[n_blk:, 4:] = rev.words
-        return blocks, n_blk
     n_blk = (fwd.seq_len + intv - 1) // intv
-    blocks = np.concatenate(
-        [_rechunk_blocks(fwd.ckpt, fwd.words, fwd.seq_len, intv),
-         _rechunk_blocks(rev.ckpt, rev.words, rev.seq_len, intv)], axis=0)
+    blocks = np.empty((2 * n_blk, 4 + (intv >> 4)), dtype=np.uint32)
+    for s, fm in enumerate((fwd, rev)):
+        native.build_blocks(fm._interleaved, fm.seq_len, intv,
+                            blocks[s * n_blk:(s + 1) * n_blk])
     return blocks, n_blk
 
 

@@ -34,15 +34,28 @@ command through the port's `cli.main`, every device route byte-equal to
            command on a card; the index's peak RSS and bytes a base
 
     python -m ibwa_tpu_torch.index_3gbp [--gbp 3.1] [--align]
-        [--device cuda] [--pairs 16384] [--json] [--work DIR]
+        [--device cuda] [--pairs 16384] [--json] [--work DIR] [--reuse]
+    python -m ibwa_tpu_torch.index_3gbp --gbp 0.5 --compare-paths
 
 The work directory (default .bench/index3g_torch/) is emptied of an
-earlier call's files first: each call generates and indexes anew.
+earlier call's files first: each call generates and indexes anew.  With
+`--reuse` a complete index there is kept: the record written after the
+index (`index.json`) names the genome's size, the FASTA's bytes and
+sha256 and the artifacts' bytes, and the index is kept when all of them
+match this `--gbp` and the files (so an index built in one call can be
+aligned on in the next, where the work directory survives between them).
+On a genome above 2^31 bases, `sampe -R` must map records on contigs whose
+packed offset is at or above 2^31 (the report counts them).
+
+`--compare-paths` indexes the FASTA by both paths of the builder (SA-IS
+and the frugal packed-text SA-IS, IBWA_FRUGAL_MIN=0) in child processes:
+the eight artifacts byte-equal, each path's wall and peak RSS.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import pathlib
@@ -62,6 +75,9 @@ RSS_LIMIT_GB = 16.0        # the script's budget
 ARTIFACTS = ("pac", "rpac", "ann", "amb", "bwt", "rbwt", "sa", "rsa")
 ROUTES = ("device_only", "hybrid")
 POS_MARK = 1 << 26         # coordinates above it are reported
+HIGH = 1 << 31
+RECORD = "index.json"      # the index's record, written after it: its
+                           # FASTA's bytes and sha256, the artifacts' bytes
 
 # the index, in a child process that imports the port alone and reports
 # its own peak RSS (RUSAGE_SELF).  A process keeps the peak of the address
@@ -137,21 +153,27 @@ def read_contigs(fa: pathlib.Path) -> list[tuple[str, np.ndarray]]:
     return out
 
 
-def index_path(fa: pathlib.Path) -> str:
-    """The index path `index/builder.py:294`'s rule takes for this FASTA."""
-    frugal_min = int(os.environ.get("IBWA_FRUGAL_MIN", (1 << 31) - 2))
-    return "frugal" if fa.stat().st_size >= frugal_min else "sais"
+def index_path(fa: pathlib.Path, frugal_min: str | None = None) -> str:
+    """The index path `index/builder.py:294`'s rule takes for this FASTA
+    (at IBWA_FRUGAL_MIN = `frugal_min`, else the environment's)."""
+    if frugal_min is None:
+        frugal_min = os.environ.get("IBWA_FRUGAL_MIN", (1 << 31) - 2)
+    return "frugal" if fa.stat().st_size >= int(frugal_min) else "sais"
 
 
-def index(fa: pathlib.Path, n_total: int, say=log) -> dict:
-    """Index `fa` through `cli.main` in a child process; its wall, its
-    peak RSS and the artifacts' bytes, as the script reports them (with
-    `under_16gb`: the caller fails above RSS_LIMIT_GB)."""
+def index(fa: pathlib.Path, n_total: int, say=log,
+          frugal_min: str | None = None) -> dict:
+    """Index `fa` through `cli.main` in a child process (IBWA_FRUGAL_MIN =
+    `frugal_min` there, if given); its wall, its peak RSS and the
+    artifacts' bytes, as the script reports them (with `under_16gb`: the
+    caller fails above RSS_LIMIT_GB)."""
     from . import native
     native.load()          # built here, so that the child only loads it
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
+    if frugal_min is not None:
+        env["IBWA_FRUGAL_MIN"] = frugal_min
     r = subprocess.run([sys.executable, "-c", _SPAWN, _CHILD, str(fa)],
                        env=env, capture_output=True, text=True)
     lines = r.stdout.strip().splitlines()
@@ -169,7 +191,7 @@ def index(fa: pathlib.Path, n_total: int, say=log) -> dict:
         "genome_bp": n_total,
         "bases": bases,
         "fasta_bytes": fa.stat().st_size,
-        "path": index_path(fa),
+        "path": index_path(fa, frugal_min),
         "index_wall_s": round(got["wall_s"], 1),
         "max_rss_gb": round(rss_gb, 2),
         "under_16gb": rss_gb <= RSS_LIMIT_GB,
@@ -240,7 +262,7 @@ def sam_places(sam: pathlib.Path, offsets: dict) -> dict:
     """Of the mapped records: the contigs they lie on, and how many lie
     above POS_MARK by SAM POS and by the coordinate of the whole packed
     text (the contig's offset + POS - 1)."""
-    contigs, pos_hi, packed_hi = set(), 0, 0
+    contigs, pos_hi, packed_hi, high = set(), 0, 0, 0
     for f in parity_scale.sam_records(sam):
         if int(f[1]) & 4:
             continue
@@ -248,8 +270,10 @@ def sam_places(sam: pathlib.Path, offsets: dict) -> dict:
         contigs.add(name)
         pos_hi += pos > POS_MARK
         packed_hi += offsets[name] + pos - 1 > POS_MARK
+        high += offsets[name] >= HIGH
     return {"contigs": len(contigs), "pos_above_2_26": pos_hi,
-            "packed_above_2_26": packed_hi}
+            "packed_above_2_26": packed_hi,
+            "on_contigs_above_2_31": high}
 
 
 def align(fa: pathlib.Path, work: pathlib.Path, device: str, pairs: int,
@@ -321,11 +345,16 @@ def align(fa: pathlib.Path, work: pathlib.Path, device: str, pairs: int,
     if places["contigs"] < 2:
         raise AssertionError(f"sampe mapped records on {places['contigs']} "
                              f"contig(s) of {len(offsets)}")
+    if seq_len > HIGH and places["on_contigs_above_2_31"] <= 0:
+        raise AssertionError("sampe mapped no record on a contig whose "
+                             "packed offset is at or above 2^31")
     say(f"sampe -R: SAM byte-equal, K5's walks and the host walks (host "
         f"{pe['host_s']:.1f} s, K5 {pe['k5_s']:.1f} s); {pe['mapped']} of "
         f"{pe['records']} records mapped on {places['contigs']} of "
         f"{len(offsets)} contigs, {places['pos_above_2_26']} above 2^26 by "
-        f"POS, {places['packed_above_2_26']} by packed coordinate; prefill "
+        f"POS, {places['packed_above_2_26']} by packed coordinate, "
+        f"{places['on_contigs_above_2_31']} on contigs at or above 2^31 in "
+        f"the packed text; prefill "
         f"{pe['batches']}; launches {pe['launches']}")
     mem.update(aln_max_allocated=aln_peak if device.startswith("cuda")
                else None, sampe_max_allocated=sampe_peak)
@@ -337,31 +366,121 @@ def align(fa: pathlib.Path, work: pathlib.Path, device: str, pairs: int,
             "_paths": {"fa": fa, "fqs": fqs}}
 
 
+def fasta_sha256(fa: pathlib.Path) -> str:
+    h = hashlib.sha256()
+    with open(fa, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def reusable(work: pathlib.Path, n_total: int) -> dict | None:
+    """The record of `work`'s index (RECORD, written after the index) if it
+    names a FASTA of `n_total` bases whose bytes and sha256 are those of
+    `work`/huge.fa now, and every artifact at the bytes it names; else
+    None."""
+    fa = work / "huge.fa"
+    try:
+        rec = json.loads((work / RECORD).read_text())
+    except (OSError, ValueError):
+        return None
+    if (rec.get("genome_bp") != n_total or not fa.is_file()
+            or fa.stat().st_size != rec.get("fasta_bytes")):
+        return None
+    for ext, size in rec.get("artifacts_bytes", {}).items():
+        art = pathlib.Path(f"{fa}.{ext}")
+        if not art.is_file() or art.stat().st_size != size:
+            return None
+    if set(rec.get("artifacts_bytes", {})) != set(ARTIFACTS):
+        return None
+    return rec if fasta_sha256(fa) == rec.get("fasta_sha256") else None
+
+
 def run(gbp: float = 3.1, align_too: bool = False, device: str = "cuda",
         pairs: int = PAIRS, work: pathlib.Path = WORK, rounds: int = ROUNDS,
-        say=log) -> dict:
+        say=log, reuse: bool = False) -> dict:
     """Generate, index and report; with `align_too` the large-table
-    configuration on the index.  Returns the report (private keys, those
-    starting with "_", for the caller)."""
+    configuration on the index.  With `reuse`, an index that `work` holds
+    already is kept when its record (`reusable`) matches this `gbp` and
+    its FASTA; else (and without `reuse`) the work directory's files are
+    deleted first and the FASTA made and indexed anew.  Returns the report
+    (private keys, those starting with "_", for the caller)."""
     n_total = int(gbp * 1e9)
     work = pathlib.Path(work)
     work.mkdir(parents=True, exist_ok=True)
-    for old in work.iterdir():      # nothing of an earlier call is read
-        if old.is_file():
-            old.unlink()
     fa = work / "huge.fa"
+    kept = reusable(work, n_total) if reuse else None
+    keep = ({fa.name, RECORD, *(f"{fa.name}.{e}" for e in ARTIFACTS)}
+            if kept else set())
+    for old in work.iterdir():      # nothing else of an earlier call is read
+        if old.is_file() and old.name not in keep:
+            old.unlink()
     t0 = time.perf_counter()
-    say(f"generating {gbp} Gbp FASTA")
-    gen_fasta(fa, n_total)
-    gen_s = time.perf_counter() - t0
-    say(f"generated in {gen_s:.1f} s ({fa.stat().st_size / 1e9:.3f} GB)")
-    t0 = time.perf_counter()
-    res = {"gbp": gbp, "device": device, "gen_s": round(gen_s, 1),
-           **index(fa, n_total, say)}
+    if kept:
+        say(f"reusing the index of {fa} ({kept['bases']} bases, FASTA "
+            f"sha256 {kept['fasta_sha256'][:16]}..., indexed in "
+            f"{kept['index_wall_s']} s)")
+        res = {"gbp": gbp, "device": device, **kept, "reused": True}
+        gen_s = 0.0
+    else:
+        say(f"generating {gbp} Gbp FASTA")
+        gen_fasta(fa, n_total)
+        gen_s = time.perf_counter() - t0
+        say(f"generated in {gen_s:.1f} s ({fa.stat().st_size / 1e9:.3f} "
+            f"GB)")
+        t0 = time.perf_counter()
+        rec = {"gen_s": round(gen_s, 1), **index(fa, n_total, say),
+               "fasta_sha256": fasta_sha256(fa)}
+        tmp = work / f"{RECORD}.tmp"
+        tmp.write_text(json.dumps(rec))
+        os.replace(tmp, work / RECORD)
+        res = {"gbp": gbp, "device": device, **rec, "reused": False}
     if align_too:
         res.update(align(fa, work, device, pairs, rounds, say))
     res["seconds"] = time.perf_counter() - t0 + gen_s
     return res
+
+
+def compare_paths(gbp: float, work: pathlib.Path, say=log) -> dict:
+    """The FASTA of `gbp` indexed by both paths of `index/builder.py:294`
+    (SA-IS, IBWA_FRUGAL_MIN above the FASTA's bytes; the frugal packed-text
+    SA-IS, IBWA_FRUGAL_MIN=0), each in its own child process: the eight
+    artifacts byte-equal (raises otherwise), each path's wall and peak
+    RSS.  `work`'s files are deleted first."""
+    import filecmp
+    n_total = int(gbp * 1e9)
+    work = pathlib.Path(work)
+    work.mkdir(parents=True, exist_ok=True)
+    for old in work.iterdir():
+        if old.is_file():
+            old.unlink()
+    fas = {"sais": work / "sais.fa", "frugal": work / "frugal.fa"}
+    t0 = time.perf_counter()
+    gen_fasta(fas["sais"], n_total)
+    os.link(fas["sais"], fas["frugal"])     # one FASTA, two prefixes
+    say(f"generated {gbp} Gbp in {time.perf_counter() - t0:.1f} s")
+    out = {"gbp": gbp, "fasta_bytes": fas["sais"].stat().st_size}
+    for path, frugal_min in (("sais", str(1 << 62)), ("frugal", "0")):
+        rep = index(fas[path], n_total, say, frugal_min=frugal_min)
+        if rep["path"] != path:
+            raise AssertionError(f"the {path} run took the {rep['path']} "
+                                 f"path")
+        out[path] = {k: rep[k] for k in ("index_wall_s", "max_rss_gb",
+                                         "rss_bytes_per_base", "bases")}
+    for ext in ARTIFACTS:
+        if not filecmp.cmp(f"{fas['sais']}.{ext}", f"{fas['frugal']}.{ext}",
+                           shallow=False):
+            raise AssertionError(f"the frugal path's .{ext} differs from "
+                                 f"the SA-IS path's")
+    out["equal"] = True
+    out["frugal_over_sais_wall"] = (out["frugal"]["index_wall_s"]
+                                    / out["sais"]["index_wall_s"])
+    say(f"the two index paths at {gbp} Gbp: the eight artifacts byte-equal; "
+        f"SA-IS {out['sais']['index_wall_s']} s, {out['sais']['max_rss_gb']} "
+        f"GB; frugal {out['frugal']['index_wall_s']} s, "
+        f"{out['frugal']['max_rss_gb']} GB "
+        f"({out['frugal_over_sais_wall']:.2f}x the wall)")
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -377,14 +496,28 @@ def main(argv: list[str] | None = None) -> int:
                     help="print the report's JSON line on stdout")
     ap.add_argument("--work", default=str(WORK),
                     help="directory of the FASTA, index and outputs")
+    ap.add_argument("--reuse", action="store_true",
+                    help="keep the work directory's index where its record "
+                         "names this --gbp and its FASTA's bytes and hash")
+    ap.add_argument("--compare-paths", action="store_true",
+                    help="index the FASTA by the SA-IS and the frugal path "
+                         "instead, artifacts byte-equal, wall and peak RSS "
+                         "of each (no --align)")
     args = ap.parse_args(argv)
+    if args.compare_paths:
+        res = compare_paths(args.gbp, pathlib.Path(args.work))
+        if args.json:
+            print(json.dumps(res), flush=True)
+        else:
+            log(json.dumps(res))
+        return 0
     if args.align and args.device.startswith("cuda"):
         import torch
         if not torch.cuda.is_available():
             log("no CUDA device; pass --device cpu")
             return 2
     res = run(args.gbp, args.align, args.device, args.pairs,
-              pathlib.Path(args.work))
+              pathlib.Path(args.work), reuse=args.reuse)
     (pathlib.Path(args.work) / "report.json").write_text(
         json.dumps(parity_scale.public(res), indent=1, default=str))
     line = json.dumps(parity_scale.public(res), default=str)

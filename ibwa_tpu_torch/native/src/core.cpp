@@ -15,6 +15,7 @@
 
 #include <omp.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cstring>
@@ -1272,7 +1273,10 @@ int32_t ibwa_match_gap(const uint32_t* itl_fwd, uint32_t primary_fwd,
   int best_score = aln_score_c(max_diff + 1, o.max_gapo + 1,
                                o.max_gape + 1, o);
   int best_diff = max_diff + 1;
-  long long best_cnt = 0;
+  // bwtgap.c's best_cnt is an int: the rows of the best hits summed wrap
+  // at 2^31 as there (and as in the device search, csrc/search_step.cuh),
+  // which a hit of 2^31 rows and more, on a table above 2^31 rows, reaches
+  int32_t best_cnt = 0;
   int n_buckets = best_score + 1;
   GapStack stack(n_buckets);
   stack.push({0, n, 0, seq_len, 0, 0, 0, ST_M, 0, 0});
@@ -1331,7 +1335,7 @@ int32_t ibwa_match_gap(const uint32_t* itl_fwd, uint32_t primary_fwd,
                                           ? max_diff : best_diff + 1;
       }
       if (score == best_score) {
-        best_cnt += (long long)(l - k) + 1;
+        best_cnt = (int32_t)((uint32_t)best_cnt + (l - k) + 1u);
       } else if (best_cnt > o.max_top2) {
         break;
       }
@@ -1452,6 +1456,47 @@ int32_t ibwa_set_threads(int32_t n) {
 int32_t ibwa_get_threads() {
   const int32_t n = g_host_threads;
   return n > 0 ? n : omp_get_max_threads();
+}
+
+// One strand's row table of the device FM index (fm/device.py::
+// build_blocks): the 128-base blocks of the interleaved stream (4
+// checkpoint words + 8 text words, the last block's text short, then the
+// final checkpoint) re-checkpointed at intv-base rows, out uint32[ceil(
+// seq_len / intv)][4 + intv / 16]; a row's checkpoint is its block's plus
+// the counts of the block's bases before it (three popcounts a word: low
+// bits C + T, high bits G + T, both T; zero padding past seq_len counts as
+// A, as ibwa_tpu/fm/device.py::_popcount_bases counts it).  Row and word
+// offsets are 64-bit: a table of 2^32 rows has 2^26 blocks of 12 words.
+void ibwa_build_blocks(const uint32_t* itl, uint32_t seq_len, int32_t intv,
+                       uint32_t* out) {
+  const int64_t n128 = ((int64_t)seq_len + 127) / 128;
+  const int64_t n_rows = ((int64_t)seq_len + intv - 1) / intv;
+  const int64_t n_words = ((int64_t)seq_len + 15) >> 4;
+  const int sub = 128 / intv, w = intv >> 4, roww = 4 + w;
+#pragma omp parallel for schedule(static) num_threads(ibwa_get_threads())
+  for (int64_t b = 0; b < n128; ++b) {
+    const uint32_t* blk = itl + 12 * b;
+    uint32_t acc[4] = {blk[0], blk[1], blk[2], blk[3]};
+    uint32_t words[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    const int64_t have = std::min<int64_t>(8, n_words - 8 * b);
+    for (int64_t j = 0; j < have; ++j) words[j] = blk[4 + j];
+    for (int i = 0; i < sub && b * sub + i < n_rows; ++i) {
+      uint32_t* row = out + (b * sub + i) * roww;
+      for (int c = 0; c < 4; ++c) row[c] = acc[c];
+      for (int j = 0; j < w; ++j) {
+        const uint32_t x = words[w * i + j];
+        const uint32_t lo = x & 0x55555555u, hi = (x >> 1) & 0x55555555u;
+        const uint32_t nl = __builtin_popcount(lo);
+        const uint32_t nh = __builtin_popcount(hi);
+        const uint32_t nt = __builtin_popcount(lo & hi);
+        row[4 + j] = x;
+        acc[0] += 16u - nl - nh + nt;
+        acc[1] += nl - nt;
+        acc[2] += nh - nt;
+        acc[3] += nt;
+      }
+    }
+  }
 }
 
 // Batch entry point with OpenMP parallelism over reads, on

@@ -212,3 +212,46 @@ def test_walker_values_above_2_31(small_index):
     got = from_bits(bits)
     assert int(got.min()) >= HIGH and int(got.max()) <= MASK
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+# ---- (f) an index kept between runs (--reuse), and the two index paths --
+
+def _stamps(work):
+    return {ext: os.stat(work / f"huge.fa.{ext}").st_mtime_ns
+            for ext in ARTIFACTS}
+
+
+def test_reuse_keeps_only_a_matching_index(tmp_path):
+    work, quiet = tmp_path / "w", (lambda msg: None)
+    first = index_3gbp.run(0.001, work=work, say=quiet, reuse=True)
+    assert not first["reused"] and (work / index_3gbp.RECORD).is_file()
+    stamps = _stamps(work)
+    (work / "end1.native.sai").write_bytes(b"an earlier run's")
+    again = index_3gbp.run(0.001, work=work, say=quiet, reuse=True)
+    assert again["reused"] and _stamps(work) == stamps
+    assert again["fasta_sha256"] == first["fasta_sha256"]
+    assert not (work / "end1.native.sai").exists()
+    # the same size, other bytes: the FASTA's hash differs, so it is made
+    # and indexed anew
+    fa = work / "huge.fa"
+    raw = bytearray(fa.read_bytes())
+    at = raw.index(b"\n") + 1
+    raw[at] = ord("C") if raw[at] != ord("C") else ord("G")
+    fa.write_bytes(bytes(raw))
+    third = index_3gbp.run(0.001, work=work, say=quiet, reuse=True)
+    assert not third["reused"] and _stamps(work) != stamps
+    assert third["fasta_sha256"] == first["fasta_sha256"]
+    # another size: made and indexed anew
+    stamps = _stamps(work)
+    fourth = index_3gbp.run(0.0012, work=work, say=quiet, reuse=True)
+    assert not fourth["reused"] and fourth["bases"] == 1_200_000
+    assert _stamps(work) != stamps
+    # without --reuse the index is always made anew
+    assert not index_3gbp.run(0.0012, work=work, say=quiet)["reused"]
+
+
+def test_compare_paths_byte_equal(tmp_path):
+    res = index_3gbp.compare_paths(0.0005, tmp_path, say=lambda msg: None)
+    assert res["equal"] and res["sais"]["bases"] == 500_000
+    for path in ("sais", "frugal"):
+        assert res[path]["index_wall_s"] >= 0 and res[path]["max_rss_gb"] > 0
