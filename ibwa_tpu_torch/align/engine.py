@@ -71,6 +71,7 @@ from ..fm.device import (DeviceFmPair, Shards, build_device_pair, cuda_table,
                          occ1_pair, occ1_pair_plain, occ4_pair,
                          occ4_pair_plain, pair_to, shard_pair)
 from ..fm.fmindex import FmIndex
+from ..spans import Recorder
 from ..u32 import MASK, int_log2, wrap_i32
 from . import engine_ref
 from .engine_ref import Hit
@@ -1520,31 +1521,50 @@ class TorchAlnEngine:
     order): a group is one entry, whose table is split by rows over the
     group (`shard_pair`, B8) and whose chunks run on the group's first
     device.  Otherwise every entry holds its own copy of the table, the
-    same card named twice too."""
+    same card named twice too.
 
-    def __init__(self, fms: tuple[FmIndex, FmIndex], device, n_idx: int = 1):
+    `spans` records the engine's spans (a `spans.Recorder`; one of its own
+    where none is given): `aln.engine_init` with `aln.table_build` and
+    `aln.table_upload`; a batch's `aln.pack`, `aln.launch` (with
+    `kernels.load` on a card), `aln.collect` and `aln.decode` a chunk,
+    `aln.host_wait`, and on the pool's thread `aln.host_search` a
+    host-share job and `aln.fallback_search` an overflow job."""
+
+    def __init__(self, fms: tuple[FmIndex, FmIndex], device, n_idx: int = 1,
+                 spans: Recorder | None = None):
         self.fms = fms
-        devs = devices_of(device)
-        if n_idx < 1 or len(devs) % n_idx:
-            raise ValueError(f"{len(devs)} devices do not make groups of "
-                             f"n_idx={n_idx}")
-        groups = [devs[i:i + n_idx] for i in range(0, len(devs), n_idx)]
-        base = build_device_pair(fms[0], fms[1], "cpu")
-        # the first entry on the CPU keeps the table it was built in (no
-        # copy of a table that may be gigabytes); every other is a copy
-        self.dfms = [shard_pair(base, g) if n_idx > 1
-                     else base if i == 0 and g[0].type == "cpu"
-                     else pair_to(base, g[0])
-                     for i, g in enumerate(groups)]
-        self.dfm, self.device = self.dfms[0], self.dfms[0].device
-        self.streams = entry_streams(self.dfms)
+        self.spans = spans if spans is not None else Recorder()
         # `batches`: one record a batch (its reads, host share, overflow
         # fallback, its split by cause, and arena size), in the order the
-        # batches came; `fallback_by_cause` the split over all batches
+        # batches came; `fallback_by_cause` the split over all batches;
+        # `h2d_bytes` / `d2h_bytes` what the table upload and the packing
+        # copy to cards / the collection copies back, `chunks` launched
         self.stats = {"device_reads": 0, "fallback_reads": 0,
                       "host_reads": 0, "iterations": 0,
                       "fallback_by_cause": dict.fromkeys(FB_CAUSES, 0),
-                      "batches": []}
+                      "batches": [], "h2d_bytes": 0, "d2h_bytes": 0,
+                      "chunks": 0}
+        with self.spans.span("aln.engine_init"):
+            devs = devices_of(device)
+            if n_idx < 1 or len(devs) % n_idx:
+                raise ValueError(f"{len(devs)} devices do not make groups "
+                                 f"of n_idx={n_idx}")
+            groups = [devs[i:i + n_idx] for i in range(0, len(devs), n_idx)]
+            with self.spans.span("aln.table_build"):
+                base = build_device_pair(fms[0], fms[1], "cpu")
+            # the first entry on the CPU keeps the table it was built in (no
+            # copy of a table that may be gigabytes); every other is a copy
+            with self.spans.span("aln.table_upload"):
+                self.dfms = [shard_pair(base, g) if n_idx > 1
+                             else base if i == 0 and g[0].type == "cpu"
+                             else pair_to(base, g[0])
+                             for i, g in enumerate(groups)]
+                self.streams = entry_streams(self.dfms)
+            self.dfm, self.device = self.dfms[0], self.dfms[0].device
+            self.stats["h2d_bytes"] = sum(
+                t.nbytes for d in self.dfms for t in (
+                    *(d.shards or (d.blocks,)), d.L2, d.l2diff, d.primary)
+                if t.device.type == "cuda")
         self.host_frac = float(os.environ.get("IBWA_HOST_FRAC",
                                               HOST_FRAC_INIT))
         # an explicit env share is FIXED (no adaptation)
@@ -1575,36 +1595,36 @@ class TorchAlnEngine:
             n_host = (int(n_reads * self.host_frac) if n_reads > HYBRID_MIN
                       else 0)
         host_lo = n_reads - n_host
-        host_busy = [0.0]
+        bno = len(self.stats["batches"])
         t_start = time.perf_counter()
-
-        def timed_native(s, r):
-            t0 = time.perf_counter()
-            res = native_align_batch(self.fms, s, r, opt)
-            host_busy[0] += time.perf_counter() - t0
-            return res
 
         host_jobs = []
         for lo in range(host_lo, n_reads, HOST_CHUNK):
             hi = min(lo + HOST_CHUNK, n_reads)
             host_jobs.append((lo, self._pool.submit(
-                timed_native, seqs[lo:hi], rseqs[lo:hi])))
+                self._native_job, "aln.host_search", bno, seqs[lo:hi],
+                rseqs[lo:hi], opt)))
 
         # ---- vectorized input packing of the device share, uploaded at
         # once to each device that launches chunks: an upload from pageable
         # memory waits for the stream, so one between two chunks would wait
         # for the chunk before
-        packed = _pack_reads(seqs[:host_lo], rseqs[:host_lo], lens[:host_lo],
-                             max_diff[:host_lo], L, SL, opt.seed_len)
-        host_arrays = (*packed, lens[:host_lo], max_diff[:host_lo])
-        inputs = {}
-        for dfm in self.dfms:
-            if dfm.device not in inputs:
-                inputs[dfm.device] = [torch.from_numpy(a).to(dfm.device)
-                                      for a in host_arrays]
-        for dfm, st in zip(self.dfms, self.streams):
-            if st is not None:
-                st.wait_stream(torch.cuda.current_stream(dfm.device))
+        with self.spans.span("aln.pack", bno):
+            packed = _pack_reads(seqs[:host_lo], rseqs[:host_lo],
+                                 lens[:host_lo], max_diff[:host_lo], L, SL,
+                                 opt.seed_len)
+            host_arrays = (*packed, lens[:host_lo], max_diff[:host_lo])
+            inputs = {}
+            for dfm in self.dfms:
+                if dfm.device not in inputs:
+                    inputs[dfm.device] = [torch.from_numpy(a).to(dfm.device)
+                                          for a in host_arrays]
+                    if dfm.device.type == "cuda":
+                        self.stats["h2d_bytes"] += sum(a.nbytes
+                                                       for a in host_arrays)
+            for dfm, st in zip(self.dfms, self.streams):
+                if st is not None:
+                    st.wait_stream(torch.cuda.current_stream(dfm.device))
 
         # ---- every chunk of the device share, on every entry, is launched
         # before the first is read back (engine_jax.py:1061-1102), so the
@@ -1613,18 +1633,24 @@ class TorchAlnEngine:
         # padding reads), on no more lanes than reads
         n_dev = len(self.dfms)
         pending = []
-        for lo in range(0, host_lo, PERSIST_N * n_dev):
-            hi = min(lo + PERSIST_N * n_dev, host_lo)
-            parts = []
-            for d in range(min(n_dev, -(-(hi - lo) // PERSIST_N))):
-                a, b = lo + d * PERSIST_N, min(lo + (d + 1) * PERSIST_N, hi)
-                sq, ssq, hs, bad, dl, md = inputs[self.dfms[d].device]
-                with on_stream(self.streams[d]):
-                    parts.append((a, d, launch_search(
-                        cfg, self.dfms[d], sq[a:b], dl[a:b], md[a:b],
-                        hs[a:b], ssq[a:b], bad[a:b],
-                        n_lanes=min(DEV_BATCH, b - a))))
-            pending.append(parts)
+        with self.spans.span("aln.launch", bno):
+            if any(d.device.type == "cuda" for d in self.dfms):
+                with self.spans.span("kernels.load"):
+                    kernels.lib()
+            for lo in range(0, host_lo, PERSIST_N * n_dev):
+                hi = min(lo + PERSIST_N * n_dev, host_lo)
+                parts = []
+                for d in range(min(n_dev, -(-(hi - lo) // PERSIST_N))):
+                    a, b = (lo + d * PERSIST_N,
+                            min(lo + (d + 1) * PERSIST_N, hi))
+                    sq, ssq, hs, bad, dl, md = inputs[self.dfms[d].device]
+                    with on_stream(self.streams[d]):
+                        parts.append((a, d, launch_search(
+                            cfg, self.dfms[d], sq[a:b], dl[a:b], md[a:b],
+                            hs[a:b], ssq[a:b], bad[a:b],
+                            n_lanes=min(DEV_BATCH, b - a))))
+                    self.stats["chunks"] += 1
+                pending.append(parts)
 
         fb_jobs = []
         n_fb = 0
@@ -1632,8 +1658,13 @@ class TorchAlnEngine:
         for parts in pending:
             chunk_steps_max = 0
             for lo, d, launched in parts:
-                with on_stream(self.streams[d]):
+                with self.spans.span("aln.collect", bno), \
+                        on_stream(self.streams[d]):
                     harr, n_hits, fb, steps, cause = collect_search(launched)
+                    if harr.device.type == "cuda":   # launched[3]: `it`
+                        self.stats["d2h_bytes"] += sum(
+                            t.nbytes for t in (launched[3], harr, n_hits, fb,
+                                               cause))
                     harr = harr.cpu().numpy()
                     nh = n_hits.cpu().numpy()
                     fb = fb.cpu().numpy()
@@ -1645,10 +1676,11 @@ class TorchAlnEngine:
                     idxs = [lo + int(b) for b in chunk_fb]
                     n_fb += len(idxs)
                     fb_jobs.append((idxs, self._pool.submit(
-                        native_align_batch, self.fms,
+                        self._native_job, "aln.fallback_search", bno,
                         [seqs[i] for i in idxs], [rseqs[i] for i in idxs],
                         opt)))
-                _decode(harr, nh, fb, opt, out, lo)
+                with self.spans.span("aln.decode", bno):
+                    _decode(harr, nh, fb, opt, out, lo)
             # the devices' longest search, as engine_jax.py:1104-1108
             self.stats["iterations"] += chunk_steps_max
 
@@ -1656,18 +1688,19 @@ class TorchAlnEngine:
         self.stats["device_reads"] += host_lo - n_fb
         self.stats["fallback_reads"] += n_fb
         self.stats["host_reads"] += n_host
-        for idxs, fut in fb_jobs:
-            for i, h in zip(idxs, fut.result()):
-                out[i] = h
-        for lo, fut in host_jobs:
-            for i, h in enumerate(fut.result()):
-                out[lo + i] = h
-        if (not self._frac_fixed) and n_host and host_lo \
-                and host_busy[0] > 0:
+        with self.spans.span("aln.host_wait", bno):
+            for idxs, fut in fb_jobs:
+                for i, h in zip(idxs, fut.result()):
+                    out[i] = h
+            for lo, fut in host_jobs:
+                for i, h in enumerate(fut.result()):
+                    out[lo + i] = h
+        host_busy = self.spans.total("aln.host_search", bno)
+        if (not self._frac_fixed) and n_host and host_lo and host_busy > 0:
             # rate-based balance: size the next host share so the pool's
             # work (pre-split reads + overflow fallback) fits the device
             # wall
-            per_read = host_busy[0] / max(n_host + n_fb, 1)
+            per_read = host_busy / max(n_host + n_fb, 1)
             want = t_dev / per_read - n_fb
             f_star = min(max(want / n_reads, 0.02), 0.85)
             self.host_frac = 0.5 * self.host_frac + 0.5 * f_star
@@ -1680,6 +1713,12 @@ class TorchAlnEngine:
             "host_share": n_host / n_reads, "acap": cfg.acap,
             "fallback_by_cause": causes})
         return out  # type: ignore[return-value]
+
+    def _native_job(self, name: str, bno: int, seqs, rseqs, opt: GapOpt):
+        """`native_align_batch` on the pool's thread, in the span `name`
+        of batch `bno`."""
+        with self.spans.span(name, bno):
+            return native_align_batch(self.fms, seqs, rseqs, opt)
 
 
 def _pack_reads(seqs, rseqs, lens, max_diff, L: int, SL: int,

@@ -33,7 +33,19 @@ def cmd_index(argv: list[str]) -> int:
 def cmd_aln(argv: list[str]) -> int:
     """`aln` with the reference option surface (ibwa_tpu.cli.cmd_aln) plus
     --device (one device or a comma list) and --idx; --engine picks torch
-    (default), native or ref."""
+    (default), native or ref.  The command's spans (`spans.py`), its root
+    `aln` from here to the return, end its `[aln] stats` line."""
+    from .spans import Recorder
+    rec = Recorder()
+    with rec.span("aln"):
+        summary = _aln(argv, rec)
+    from .align.pipeline import print_stats
+    print_stats(summary, rec)
+    return 0
+
+
+def _aln(argv: list[str], rec) -> dict:
+    """`cmd_aln`'s work in its root span; the stats line's summary."""
     ap = argparse.ArgumentParser(prog="ibwa-tpu-torch aln")
     ap.add_argument("prefix")
     ap.add_argument("fastq")
@@ -82,8 +94,12 @@ def cmd_aln(argv: list[str]) -> int:
                          "first device [1: a copy per device]")
     args = ap.parse_args(argv)
 
-    from .align.opts import BWA_MODE_GAPE, BWA_MODE_NONSTOP, GapOpt
-    from .align.pipeline import aln_to_stream
+    with rec.span("aln.import"):
+        # torch and its CUDA libraries, where the process has not yet
+        # loaded them
+        from . import native
+        from .align import pipeline
+        from .align.opts import BWA_MODE_GAPE, BWA_MODE_NONSTOP, GapOpt
     opt = GapOpt()
     if args.n is not None:
         if "." in args.n:
@@ -117,18 +133,18 @@ def cmd_aln(argv: list[str]) -> int:
     # -t, else OMP_NUM_THREADS, else 1, for this command only; set in the
     # library, it holds whatever loaded the library first (OpenMP reads
     # OMP_NUM_THREADS once, at the load)
-    from . import native
     before = native.set_threads(
         _env_threads() if args.t is None else args.t)
     out = open(args.f, "wb") if args.f else sys.stdout.buffer
     try:
-        aln_to_stream(args.prefix, args.fastq, opt, out, engine=args.engine,
-                      device=args.device, n_idx=args.idx)
+        _, summary = pipeline.run_aln(args.prefix, args.fastq, opt, out,
+                                      args.engine, args.device, args.idx,
+                                      rec)
     finally:
         native.set_threads(before)
         if args.f:
             out.close()
-    return 0
+    return summary
 
 
 def _env_threads() -> int:
