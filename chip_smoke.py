@@ -148,19 +148,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
         on repeat_pe's recorded intervals against its plain version and
         the run's values, bitwise, timed beside its bounds, and the width
         pass and the chunk search timed on the CLI path (a profiler
-        session around `aln`) at ACAP 1024 (the gappy set) and 256 (the
-        default) on the same reads; every device `aln`'s overflow fallback
-        by cause
+        session around `aln`) at ACAP 1024 (the gappy set) and the card's
+        (the default, `engine.caps`) on the same reads; every device
+        `aln`'s overflow fallback by cause
      h. a large table (`ibwa_tpu_torch/index_3gbp.py` at 0.125 Gbp, run
         after g, with the launches of its commands counted on a line of
         their own): scripts/index_3gbp.py's 32-contig genome generated and
         indexed by the port in a child process (wall, peak RSS, artifact
         bytes); 16,384 pairs: aln device-only, hybrid and native on both
         ends (.sai byte-equal, one width pass and one chunk search a
-        chunk, ACAP 256, the fallback share), the rates of end 1 in three
-        rounds in turns, sampe -R with K5's walks against the host walks
-        (SAM byte-equal, 0 host walks and 0 refused values, records on
-        several contigs and above 2^26 in the packed text), the table's
+        chunk, `engine.caps`' arena, the fallback share), the rates of
+        end 1 in three rounds in turns, sampe -R with K5's walks against
+        the host walks (SAM byte-equal, 0 host walks and 0 refused
+        values, records on several contigs and above 2^26 in the packed
+        text), the table's
         bytes and seconds and the card's peak memory of each command;
         then K5 on sampe's recorded intervals (`k5_on_run`), and K6 and
         K8 on the first 2,048 reads of end 1 over the 125 MB table bitwise
@@ -499,7 +500,7 @@ def check_stack(dev) -> dict:
         log(f"K1 stack_update B={B_LANES} ACAP={acap}: bitwise equal; "
             f"device ms/call kernel {ms:.5f}, plain {plain_ms:.5f}; "
             f"call ms kernel {call_ms:.5f}, plain {plain_call_ms:.5f}")
-        if acap == 256:   # the main path's arena (make_config, 32 Mbp)
+        if acap == 256:   # the CPU route's arena at 32 Mbp
             # must move: the step's inputs, the whole key plane (free-slot
             # ranks and the argmin need every slot), the popped entry of
             # the 4 payload planes, <= 10 child slots + the freed one in
@@ -564,15 +565,20 @@ def check_occ(fm, dev) -> dict:
 
 def smoke_chunk(fms, fq, dev) -> dict:
     """The first PERSIST_N reads of the smoke corpus as the engine takes a
-    chunk: its config, the read lists, and `run_search_persistent`'s read
-    arguments on the card."""
+    chunk: its config at the CPU route's caps (`cfg`: ACAP 256, iter_cap
+    384, the shape the stage kernels' checks start from) and at the caps
+    the engine takes on `dev` (`card_cfg`, `engine.caps`), the read lists,
+    and `run_search_persistent`'s read arguments on the card (the same at
+    both caps)."""
     from ibwa_tpu_torch.align import engine, pipeline
     from ibwa_tpu_torch.align.opts import GapOpt
     opt = GapOpt()
     reads = pipeline._load(str(fq), opt)[:engine.PERSIST_N]
     seqs, rseqs = [r.seq for r in reads], [r.rseq for r in reads]
     cfg, lens, md = engine.batch_config(seqs, opt, fms[0].seq_len)
-    return {"cfg": cfg, "opt": opt, "seqs": seqs, "rseqs": rseqs, "fms": fms,
+    card_cfg = engine.batch_config(seqs, opt, fms[0].seq_len, dev.type)[0]
+    return {"cfg": cfg, "card_cfg": card_cfg, "opt": opt, "seqs": seqs,
+            "rseqs": rseqs, "fms": fms,
             "args": engine.pack_chunk(cfg, seqs, rseqs, lens, md,
                                       opt.seed_len, dev)}
 
@@ -654,7 +660,7 @@ def check_search_step(fm, chunk: dict, sass: dict) -> dict:
             f"{engine.SWITCH_K} plain steps {plain_ms:.5f}; bound "
             f"{b['bound_ms']:.5f} ({b['bound_by']}, {moved} bytes, {ops} "
             f"operations); issue {issue:.5f} ms")
-        if acap == 256:   # the main path's arena
+        if acap == 256:   # the CPU route's arena at 32 Mbp
             row = {"max_abs_err": 0, "ms": ms[engine.SWITCH_K],
                    "plain_ms": plain_ms, **b, "library_ms": None,
                    "issue_ms": issue, "e_fetches": e_fetches,
@@ -765,7 +771,7 @@ def check_lane_switch(fm, chunk: dict) -> tuple[dict, dict]:
             f"load): device ms/call kernel {ms:.5f}, plain {plain_ms:.5f}; "
             f"call ms kernel {call_ms:.5f}, plain {plain_call_ms:.5f}; bound "
             f"{b['bound_ms']:.5f} ({b['bound_by']}, {moved} bytes)")
-        if acap == 256:   # the main path's arena
+        if acap == 256:   # the CPU route's arena at 32 Mbp
             row = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b,
                    "library_ms": None}
     kernels.reset_launches()
@@ -1065,8 +1071,9 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict, sass: dict
     step count over B_LANES lanes).  Against the plain loop
     (`engine.run_search_plain`, whose stages are the plain step and
     switch; on a card it reaches K1 and K2 through their wrappers): the
-    smoke chunk, 2,048 reads, as the main path gives it, the fallback's
-    causes too.  Against the loop of the phased kernels
+    smoke chunk, 2,048 reads, at the caps the engine takes on the card
+    (`card_cfg`, the main path's shape) and at the CPU route's, the
+    fallback's causes too.  Against the loop of the phased kernels
     (`engine.run_search_phased`): the same chunk at ACAP 256 and 1024, on
     grids of 1, 33 and 132 blocks (the queue's order must not matter), and
     the read inputs of the `bad`, `tail` and `all` cases of
@@ -1076,11 +1083,14 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict, sass: dict
     (`csrc/search_chunk_first.cu`) against the plain loop, and timed in
     turns with the redesign at ACAP 256 and 1024 (FIRST_TURNS); the stage
     and lane profiles of both (`ibwa_tpu_torch.profile_step`); the cap
-    sweep (`cap_sweep`)."""
+    sweep (`cap_sweep`).  The row of the kernel table (ms, the plain
+    loop's, the bounds, the longest read) is the card's caps'; the same
+    readings at ACAP 256 stand beside it (`acap256`) with the first
+    version's."""
     import torch
     from ibwa_tpu_torch import kernels, profile_step
     from ibwa_tpu_torch.align import engine
-    cfg0, args0 = chunk["cfg"], chunk["args"]
+    cfg0, args0, cfgc = chunk["cfg"], chunk["args"], chunk["card_cfg"]
     seqs, lens, md, hs, ssq, bad = args0
     hold = lambda *a, **k: hold_search_chunk(fm, *a, **k)[0]
     plain_run = lambda: engine.run_search_plain(cfg0, fm, *args0,
@@ -1092,8 +1102,15 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict, sass: dict
     want = plain_out[-1]
     text, (_, _, _, _, cause, it, counters) = hold_search_chunk(
         fm, "smoke against the plain loop", cfg0, args0, B_LANES, want)
+    card_plain_ms = event_ms(lambda: plain_out.append(
+        engine.run_search_plain(cfgc, fm, *args0, n_lanes=B_LANES)), 1)
+    card_want = plain_out[-1]
+    card_text, (_, _, _, _, _, card_it, card_counters) = hold_search_chunk(
+        fm, f"smoke at the card's caps (ACAP {cfgc.acap}, iter_cap "
+        f"{cfgc.iter_cap}) against the plain loop", cfgc, args0, B_LANES,
+        card_want)
     phased = engine.run_search_phased(cfg0, fm, *args0, n_lanes=B_LANES)
-    seen = [text, hold("smoke", cfg0, args0, B_LANES, phased)]
+    seen = [text, card_text, hold("smoke", cfg0, args0, B_LANES, phased)]
     for name in ("bad", "tail", "all"):
         ch = switch_cases[name]
         args = (args0[0][:ch.N].contiguous(), ch.lens, ch.max_diff0,
@@ -1126,7 +1143,7 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict, sass: dict
     shape = {acap: engine.search_chunk_shape(
         dataclasses.replace(cfg0, acap=acap), fm, seqs,
         engine.big_planes(cfg0, fm, seqs, lens, hs, ssq), lens, md, hs, bad)
-        for acap in (256, 1024)}
+        for acap in (256, 1024, cfgc.acap)}
     log(f"search_chunk's launch: {shape}")
 
     # ---- the first version against the plain loop, its own step count
@@ -1159,9 +1176,10 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict, sass: dict
                 time_search_chunk(cfg, fm, args0, reps, 1,
                                   first=design == "first"))
     mode0 = time_search_chunk(cfg0, fm, args0, 10, 0)
+    card_turns = [time_search_chunk(cfgc, fm, args0, 4, 1) for _ in range(3)]
     med = {acap: {d: statistics.median(v) for d, v in t.items()}
            for acap, t in turns.items()}
-    ms = med[256]["new"]
+    ms, card = med[256]["new"], statistics.median(card_turns)
     phased_run = lambda: engine.run_search_phased(cfg0, fm, *args0,
                                                   n_lanes=B_LANES)
     phased_us = traced(lambda: (phased_run(), phased_run()), 2)
@@ -1195,6 +1213,12 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict, sass: dict
                                                   sass["new"])
     b = bound(moved, ops)
     longest = int(it.max())
+    cc = dict(zip(engine.COUNTERS, card_counters.tolist()))
+    c_moved, c_ops, c_instr, c_static = chunk_work(cfgc, fm, card_want, cc,
+                                                   sass["new"])
+    bc = bound(c_moved, c_ops)
+    c_longest = int(card_it.max())
+    card_split = cause_split(card_want[4], card_want[2])
     log(f"search_chunk N={lens.shape[0]} ACAP={cfg0.acap} on "
         f"{shape[256]['lanes']} resident lanes ({shape[256]['blocks_per_sm']}"
         f" blocks an SM; ACAP 1024: {shape[1024]['lanes']}, "
@@ -1220,20 +1244,42 @@ def check_search_chunk(fm, chunk: dict, switch_cases: dict, sass: dict
         f"read's last); issue at least {issue_ms(instructions):.5f} ms "
         f"({instructions} warp instructions), the step loop's static count "
         f"{issue_ms(static):.5f} ms")
+    log(f"search_chunk N={lens.shape[0]} at the card's caps (ACAP "
+        f"{cfgc.acap}, iter_cap {cfgc.iter_cap}) on "
+        f"{shape[cfgc.acap]['lanes']} resident lanes "
+        f"({shape[cfgc.acap]['blocks_per_sm']} blocks an SM): device ms per "
+        f"launch {' '.join(f'{x:.5f}' for x in card_turns)} (median "
+        f"{card:.5f}, {card / ms:.3f}x ACAP 256's); the longest read "
+        f"{c_longest} iterations, the longest lane {cc['longest_lane']}, "
+        f"all {cc['iterations']}, FM rows {cc['rows']} ({cc['e_fetches']} "
+        f"E-chain fetches); {card * 1e3 / c_longest:.4f} us per iteration of "
+        f"the longest read; fallback {int(card_want[2].sum())} {card_split}; "
+        f"the plain loop's CUDA-event span {card_plain_ms:.5f} ms; bound "
+        f"{bc['bound_ms']:.5f} ({bc['bound_by']}, {c_moved} bytes, {c_ops} "
+        f"operations); issue at least {issue_ms(c_instr):.5f} ms, the step "
+        f"loop's static count {issue_ms(c_static):.5f} ms")
     sweep = cap_sweep(fm, chunk, "smoke", plain=True)
     kernels.reset_launches()
-    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": None, "issue_ms": issue_ms(instructions),
-            "issue_static_ms": issue_ms(static),
+    return {"max_abs_err": 0, "caps": [cfgc.acap, cfgc.iter_cap],
+            "ms": card, "plain_ms": card_plain_ms, **bc,
+            "library_ms": None,
+            "issue_ms": issue_ms(c_instr),
+            "issue_static_ms": issue_ms(c_static), "turns_ms": card_turns,
+            "longest_read": c_longest, "counters": cc,
+            "fallback_by_cause": card_split,
+            "acap256": {"ms": ms, "plain_ms": plain_ms, **b,
+                        "issue_ms": issue_ms(instructions),
+                        "issue_static_ms": issue_ms(static),
+                        "longest_read": longest, "counters": c,
+                        "fallback_by_cause": cause_split(want[4], want[2])},
             "phased_kernels_ms": sum(phased_ms.values()),
-            "first_version_ms": med[256]["first"], "turns_ms": turns,
+            "first_version_ms": med[256]["first"], "first_turns_ms": turns,
             "acap1024_ms": med[1024]["new"],
             "acap1024_first_version_ms": med[1024]["first"],
             "no_prefetch_ms": mode0, "shape": shape, "sass": sass,
-            "longest_read": longest, "first_longest_lane": first_longest,
-            "counters": c, "fallback_by_cause": cause_split(want[4], want[2]),
+            "first_longest_lane": first_longest,
             "stages": stages, "lanes_ms": lanes, "cap_sweep": sweep,
-            "_longest": longest}
+            "_longest": c_longest}
 
 
 def cap_sweep(fm, chunk: dict, label: str, plain: bool,
@@ -1670,12 +1716,12 @@ def profile_chunk(fms, fm, chunk: dict) -> None:
     kind; beside it, in the same process, the loop of the phased kernels on
     the same chunk with the host clock around each of a phase's calls; the
     step's prefetch on and off in turns; and the native search of the same
-    reads."""
+    reads.  At the caps the engine takes on the card (`card_cfg`)."""
     import torch
     from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.align import engine
     n = len(chunk["seqs"])
-    cfg, args = chunk["cfg"], chunk["args"]
+    cfg, args = chunk["card_cfg"], chunk["args"]
     run = lambda: engine.run_search_persistent(cfg, fm, *args,
                                                n_lanes=B_LANES)
     run()
@@ -1783,12 +1829,13 @@ def profile_chunk(fms, fm, chunk: dict) -> None:
         f"({n / native_s:.0f} reads/s)")
 
 
-def run_aln_paths(fa, fq) -> tuple[dict, dict]:
+def run_aln_paths(fa, fq, caps: tuple[int, int]) -> tuple[dict, dict]:
     """`aln` native, device-only and hybrid, ROUNDS rounds of the three in
     turns (the order reversed every other round); in every round both
-    device .sai must be byte-identical to the native one, and the
-    device-only run's launches, steps and fallback the same.  Returns the
-    launch counts of the device-only and the hybrid runs."""
+    device .sai must be byte-identical to the native one, every device
+    batch at `caps` (ACAP, iter_cap: the card's), and the device-only
+    run's launches, steps and fallback the same.  Returns the launch
+    counts of the device-only and the hybrid runs."""
     from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.io import sai
     names = ("native", "device_only", "hybrid")
@@ -1808,6 +1855,11 @@ def run_aln_paths(fa, fq) -> tuple[dict, dict]:
             finally:
                 os.environ.pop("IBWA_HOST_FRAC", None)
             got = dict(kernels.launches)
+            took = {(b["acap"], b["iter_cap"])
+                    for b in res[name][-1].get("batches", [])}
+            if name != "native" and took != {tuple(caps)}:
+                raise AssertionError(f"aln {name} round {r} took (ACAP, "
+                                     f"iter_cap) {took}, not {caps}")
             if name != "native" and launches.setdefault(name, got) != got:
                 raise AssertionError(f"aln {name} round {r} launched {got}, "
                                      f"round 0 {launches[name]}")
@@ -1836,8 +1888,9 @@ def run_aln_paths(fa, fq) -> tuple[dict, dict]:
             f"{r.get('fallback_by_cause')}), host share "
             f"{r.get('host_reads', 0)}, steps {r.get('iterations', 0)}; "
             f"the native search on {r['host_threads']} host thread(s)")
-    log(f".sai byte-identical to --engine native (device-only, hybrid) in "
-        f"each of {ROUNDS} rounds; {n_hit}/{N_READS} reads with hits; "
+    log(f".sai byte-identical to --engine native (device-only, hybrid, at "
+        f"ACAP {caps[0]} and iter_cap {caps[1]}) in each of {ROUNDS} "
+        f"rounds; {n_hit}/{N_READS} reads with hits; "
         f"launches device-only {launches['device_only']}, hybrid "
         f"{launches['hybrid']}")
     return launches["device_only"], launches["hybrid"]
@@ -2767,12 +2820,13 @@ def check_sharded(fm, chunk: dict, dev, rows: dict, ptxas: dict) -> dict:
     plain loop of ~330,000 launches takes ~90 s), bitwise; then K6 and K8
     timed in turns (MESH_TURNS), flat and split.  A row reports the
     largest n_idx, keeps the flat kernel's bound (the same bytes,
-    operations and chain) and both instantiations' ptxas lines."""
+    operations and chain) and both instantiations' ptxas lines.  At the
+    caps the engine takes on the card (`card_cfg`), as the flat row."""
     import torch
     from ibwa_tpu_torch import kernels
     from ibwa_tpu_torch.align import engine
     from ibwa_tpu_torch.fm.device import shard_pair
-    cfg, args = chunk["cfg"], chunk["args"]
+    cfg, args = chunk["card_cfg"], chunk["args"]
     seqs, lens, md, hs, ssq, bad = args
     pairs = {"flat": fm, **{n: shard_pair(fm, [dev] * n) for n in MESH_IDX}}
     widths = lambda f: engine.big_planes(cfg, f, seqs, lens, hs, ssq)
@@ -2931,8 +2985,8 @@ def run_scale_phase(warp_us: float, rows: dict) -> dict:
     at full scale on the card (it raises on the first inequality), then
     K5 on repeat_pe's recorded intervals (bitwise against its plain
     version and the run's values, CUDA events, bounds by `walk_footprint`)
-    and the width pass and the chunk search on the CLI path at ACAP 1024
-    and 256 (device ms a launch from a profiler session around one
+    and the width pass and the chunk search on the CLI path, gappy and
+    default options (device ms a launch from a profiler session around one
     device-only `aln` of aln_options' reads, .sai byte-equal to native);
     logs every device `aln`'s overflow fallback by cause.
     Adds those readings to the kernel table's rows; returns the launches
@@ -2980,7 +3034,7 @@ def run_scale_phase(warp_us: float, rows: dict) -> dict:
     del calls
     torch.cuda.empty_cache()
 
-    # the width pass and the chunk search on the CLI path, ACAP 1024 / 256
+    # the width pass and the chunk search on the CLI path, gappy / default
     paths = res["aln_options"]["_paths"]
     for name in ("gappy", "default"):
         out, st = WORK / f"scale_{name}.sai", {}
@@ -3785,7 +3839,8 @@ def main(argv: list[str] | None = None) -> int:
     stamp("probe and walker")
 
     # ---- 4c. aln
-    aln_launches, hybrid_launches = run_aln_paths(fa, fq)
+    aln_launches, hybrid_launches = run_aln_paths(
+        fa, fq, (chunk["card_cfg"].acap, chunk["card_cfg"].iter_cap))
     for path, counts in (("device-only", aln_launches),
                          ("hybrid", hybrid_launches)):
         for name in ALN_KERNELS:

@@ -92,14 +92,20 @@ DEV_BATCH = 1024  # persistent device lanes per dispatch
 PERSIST_N = 2048  # reads streamed through the lanes per dispatch
 E_UNROLL = 2      # exact-extension bases consumed per E pop
 ITER_CAP = 384    # pushes before a read is routed to the host search
+CARD_ACAP = 2048        # on a card (`caps`): the arena and step budget of
+CARD_ITER_CAP = 1536    # a narrow budget on a big genome, the step budget
+                        # of a wide one; chosen by batches' search time
+                        # (PERF.md §6)
 SWITCH_K = 16     # search steps between lane-switch phases
 # why a read went to the host search (its fb flag), in the plain step's
 # order where two fire in one step: csrc/search_step.cuh's kCause*, then
 # FB_BOUND for the reads that the phased loop's iteration bound sends there
 FB_NONE, FB_ITER_CAP, FB_ARENA, FB_HITS, FB_SEQNO, FB_BOUND = range(6)
 FB_CAUSES = ("iter_cap", "arena", "hits", "seqno", "bound")  # codes 1..5
-HOST_FRAC_INIT = 0.30  # starting host share of a batch (hybrid); adapts
-                       # per batch; IBWA_HOST_FRAC fixes it
+HOST_FRAC_INIT = 0.30  # starting host share of a batch (hybrid) on the
+                       # CPU; adapts per batch; IBWA_HOST_FRAC fixes it
+CARD_HOST_FRAC_INIT = 0.0  # on a card: a one-batch run has nothing to adapt
+                           # from, and the card searches a read faster
 HOST_CHUNK = 2048      # reads per native job
 HYBRID_MIN = 2048      # a batch of at most this many reads has no host
                        # share (engine_jax.py's threshold)
@@ -129,11 +135,34 @@ class EngineConfig:
     loggap: bool      # BWA_MODE_LOGGAP
 
 
-def make_config(L: int, max_diff_hi: int, opt: GapOpt,
-                seq_len: int = 0) -> EngineConfig:
-    """Search parameters for a read batch (engine_jax.make_config)."""
+def caps(max_diff_hi: int, opt: GapOpt, seq_len: int,
+         device_type: str = "cpu") -> tuple[int, int]:
+    """(arena slots, step budget) of a read's device search; a read that
+    outgrows either goes to the host search.  The CPU's phased loop keeps
+    engine_jax's: narrow budgets on big genomes fit the small arena; wide
+    budgets and small genomes (wide SA intervals) fan out far more entries.
+    On a card a launch lasts as long as its longest read, so the caps rise
+    only where the reads they keep from the host search pay for that: a
+    narrow budget on a big genome takes CARD_ACAP and CARD_ITER_CAP, a
+    wide budget CARD_ITER_CAP in the wide arena; -N and genomes below
+    2^22 keep the CPU's caps, which searched them fastest."""
+    narrow = max_diff_hi <= 5 and opt.max_gapo <= 1
+    nonstop = bool(opt.mode & BWA_MODE_NONSTOP)
+    big = seq_len >= (1 << 22)
+    acap = ACAP if narrow and big and not nonstop else max(ACAP, 1024)
+    if device_type != "cuda" or nonstop or not big:
+        return acap, ITER_CAP
+    return (max(acap, CARD_ACAP) if narrow else acap,
+            max(ITER_CAP, CARD_ITER_CAP))
+
+
+def make_config(L: int, max_diff_hi: int, opt: GapOpt, seq_len: int = 0,
+                device_type: str = "cpu") -> EngineConfig:
+    """Search parameters for a read batch (engine_jax.make_config on the
+    CPU; `caps` on a card)."""
     nb = aln_score(max_diff_hi + 1, opt.max_gapo + 1, opt.max_gape + 1,
                    opt) + 1
+    acap, iter_cap = caps(max_diff_hi, opt, seq_len, device_type)
     return EngineConfig(
         L=L, SL=min(opt.seed_len, L), NB=nb,
         s_mm=opt.s_mm, s_gapo=opt.s_gapo, s_gape=opt.s_gape,
@@ -142,12 +171,7 @@ def make_config(L: int, max_diff_hi: int, opt: GapOpt,
         indel_end_skip=opt.indel_end_skip, max_top2=opt.max_top2,
         max_entries=min(opt.max_entries, INT32_MAX),
         max_seed_diff=opt.max_seed_diff,
-        iter_cap=ITER_CAP,
-        # narrow budgets on big genomes fit the small arena; wide budgets
-        # and small genomes (wide SA intervals) fan out far more entries
-        acap=(ACAP if max_diff_hi <= 5 and opt.max_gapo <= 1
-              and not (opt.mode & BWA_MODE_NONSTOP)
-              and seq_len >= (1 << 22) else max(ACAP, 1024)),
+        iter_cap=iter_cap, acap=acap,
         gape_mode=bool(opt.mode & BWA_MODE_GAPE),
         nonstop=bool(opt.mode & BWA_MODE_NONSTOP),
         loggap=bool(opt.mode & BWA_MODE_LOGGAP),
@@ -1441,10 +1465,11 @@ def step_cases(cfg: EngineConfig, fm: DeviceFmPair, seqs, lens, max_diff0,
         ("iter_cap", capped, seqs, clone_state(base))]
 
 
-def batch_config(seqs: list[np.ndarray], opt: GapOpt, seq_len: int):
-    """The search parameters of a read batch and its per-read lengths and
-    diff budgets (int64[n]): bwa_cal_sa_reg_gap's preamble
-    (bwtaln.c:80-100)."""
+def batch_config(seqs: list[np.ndarray], opt: GapOpt, seq_len: int,
+                 device_type: str = "cpu"):
+    """The search parameters of a read batch on a device of
+    `device_type` and its per-read lengths and diff budgets (int64[n]):
+    bwa_cal_sa_reg_gap's preamble (bwtaln.c:80-100)."""
     lens = np.array([len(s) for s in seqs], dtype=np.int64)
     batch_opt = dataclasses.replace(opt)
     if opt.fnr > 0.0:
@@ -1458,7 +1483,8 @@ def batch_config(seqs: list[np.ndarray], opt: GapOpt, seq_len: int):
     if batch_opt.max_diff < batch_opt.max_gapo:
         batch_opt.max_gapo = batch_opt.max_diff
     L = int(max(8, (int(lens.max()) + 7) // 8 * 8))
-    cfg = make_config(L, int(max_diff.max()), batch_opt, seq_len=seq_len)
+    cfg = make_config(L, int(max_diff.max()), batch_opt, seq_len=seq_len,
+                      device_type=device_type)
     return cfg, lens, max_diff
 
 
@@ -1505,6 +1531,14 @@ def on_stream(st):
         return
     with torch.cuda.device(st.device), torch.cuda.stream(st):
         yield
+
+
+def first_host_share(device_type: str) -> float:
+    """The host share of an engine's first batch on a device of
+    `device_type`: IBWA_HOST_FRAC where it is set (a fixed share), else
+    CARD_HOST_FRAC_INIT on a card and HOST_FRAC_INIT on the CPU."""
+    return float(os.environ.get("IBWA_HOST_FRAC", CARD_HOST_FRAC_INIT
+                                if device_type == "cuda" else HOST_FRAC_INIT))
 
 
 class TorchAlnEngine:
@@ -1565,8 +1599,7 @@ class TorchAlnEngine:
                 t.nbytes for d in self.dfms for t in (
                     *(d.shards or (d.blocks,)), d.L2, d.l2diff, d.primary)
                 if t.device.type == "cuda")
-        self.host_frac = float(os.environ.get("IBWA_HOST_FRAC",
-                                              HOST_FRAC_INIT))
+        self.host_frac = first_host_share(self.device.type)
         # an explicit env share is FIXED (no adaptation)
         self._frac_fixed = "IBWA_HOST_FRAC" in os.environ
         # one worker: native jobs (host share, then overflow fallback) run
@@ -1583,7 +1616,8 @@ class TorchAlnEngine:
         if not seqs:
             return []
         n_reads = len(seqs)
-        cfg, lens, max_diff = batch_config(seqs, opt, self.dfm.seq_len)
+        cfg, lens, max_diff = batch_config(seqs, opt, self.dfm.seq_len,
+                                           self.device.type)
         L, SL = cfg.L, cfg.SL
         out: list[list[Hit] | None] = [None] * n_reads
 
@@ -1695,15 +1729,7 @@ class TorchAlnEngine:
             for lo, fut in host_jobs:
                 for i, h in enumerate(fut.result()):
                     out[lo + i] = h
-        host_busy = self.spans.total("aln.host_search", bno)
-        if (not self._frac_fixed) and n_host and host_lo and host_busy > 0:
-            # rate-based balance: size the next host share so the pool's
-            # work (pre-split reads + overflow fallback) fits the device
-            # wall
-            per_read = host_busy / max(n_host + n_fb, 1)
-            want = t_dev / per_read - n_fb
-            f_star = min(max(want / n_reads, 0.02), 0.85)
-            self.host_frac = 0.5 * self.host_frac + 0.5 * f_star
+        self._balance(bno, n_reads, n_host, n_fb, host_lo, t_dev)
         self.stats["host_frac"] = round(self.host_frac, 3)
         causes = dict(zip(FB_CAUSES, by_cause[1:].tolist()))
         for name, n in causes.items():
@@ -1711,8 +1737,27 @@ class TorchAlnEngine:
         self.stats["batches"].append({
             "reads": n_reads, "host_reads": n_host, "fallback_reads": n_fb,
             "host_share": n_host / n_reads, "acap": cfg.acap,
-            "fallback_by_cause": causes})
+            "iter_cap": cfg.iter_cap, "fallback_by_cause": causes})
         return out  # type: ignore[return-value]
+
+    def _balance(self, bno: int, n_reads: int, n_host: int, n_fb: int,
+                 host_lo: int, t_dev: float) -> None:
+        """Rate-based balance: size the next batch's host share so that
+        the pool's work, the host share and the overflow, fits the
+        devices' wall `t_dev` of batch `bno`; the pool's time a read is
+        both kinds of job's over both kinds of read.  Down to no share
+        where the overflow alone fills the wall; an env share is fixed.
+        A batch whose pool ran nothing measures no host rate and leaves
+        the share as it is: a card at no share stays there until a batch
+        overflows (no start share above 0 searched faster on a card)."""
+        host_busy = (self.spans.total("aln.host_search", bno)
+                     + self.spans.total("aln.fallback_search", bno))
+        if self._frac_fixed or not host_lo or host_busy <= 0:
+            return
+        per_read = host_busy / (n_host + n_fb)
+        want = t_dev / per_read - n_fb
+        f_star = min(max(want / n_reads, 0.0), 0.85)
+        self.host_frac = 0.5 * self.host_frac + 0.5 * f_star
 
     def _native_job(self, name: str, bno: int, seqs, rseqs, opt: GapOpt):
         """`native_align_batch` on the pool's thread, in the span `name`

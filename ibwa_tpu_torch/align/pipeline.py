@@ -112,7 +112,8 @@ def run_aln(prefix: str, fq_path: str, opt: GapOpt, out: BinaryIO,
                       f"overflow fallback {b['fallback_reads']} ("
                       + ", ".join(f"{k} {v}" for k, v in
                                   b["fallback_by_cause"].items())
-                      + f"), ACAP {b['acap']}", file=sys.stderr)
+                      + f"), ACAP {b['acap']}, iter_cap {b['iter_cap']}",
+                      file=sys.stderr)
         # one machine-readable summary line: search wall time (index and
         # read loading excluded; the `aln.search` spans' total), the native
         # search's host threads (the torch engine's host share and fallback

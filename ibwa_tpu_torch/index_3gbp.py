@@ -281,6 +281,7 @@ def align(fa: pathlib.Path, work: pathlib.Path, device: str, pairs: int,
     """The large-table configuration on an indexed `fa` (the module's
     docstring); raises on the first inequality."""
     from .align import engine
+    from .align.opts import GapOpt, cal_maxdiff
     parity_scale.LAUNCHES.clear()
     contigs = read_contigs(fa)
     offsets, at = {}, 0
@@ -298,8 +299,11 @@ def align(fa: pathlib.Path, work: pathlib.Path, device: str, pairs: int,
         f"bytes of block table, {mem['sampled_bytes']} of sampled arrays "
         f"(sa_intv {mem['sa_intv']})")
 
-    # aln, both ends: each device route byte-equal to native
-    want_acap = [engine.ACAP if seq_len >= 1 << 22 else 1024]
+    # aln, both ends: each device route byte-equal to native, at the
+    # arena the engine's rule gives 100 bp reads under the default options
+    opt = GapOpt()
+    want_acap = [engine.caps(cal_maxdiff(100, thres=opt.fnr), opt, seq_len,
+                             device.split(":")[0])[0]]
     ends, sais, aln_peak = [], [], 0
     for e, fq in enumerate(fqs, 1):
         res, peak = peak_of(device, lambda: parity_scale.aln_pair(

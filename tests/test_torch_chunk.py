@@ -361,9 +361,33 @@ def test_search_chunk_source_higher_iter_cap(chunk, chunk_reads,
     loop at that budget, it keeps reads on the card that the lower budget
     sends to the host, and every read it keeps decodes to the hits that
     the host search and `engine_ref` give it."""
+    cfg = chunk[0]
+    _hold_higher_caps(dataclasses.replace(cfg, iter_cap=3 * cfg.iter_cap),
+                      chunk, chunk_reads, standin_lib, monkeypatch)
+
+
+def test_search_chunk_source_card_caps(chunk, chunk_reads, standin_lib,
+                                       monkeypatch):
+    """The same at the arena and step budget a card takes for the chunk's
+    reads on a genome of 2^22 bases or more (`engine.caps`; the chunk's
+    own genome is smaller): kernel = plain loop = host search's hits."""
+    cfg, fm, args = chunk
+    fms, _, _, opt = chunk_reads
+    assert fms[0].seq_len < 1 << 22
+    acap, cap = engine.caps(int(args[2].max()), opt, 1 << 22, "cuda")
+    assert (acap, cap) == (engine.CARD_ACAP, engine.CARD_ITER_CAP)
+    assert (acap, cap) != (cfg.acap, cfg.iter_cap)
+    _hold_higher_caps(dataclasses.replace(cfg, acap=acap, iter_cap=cap),
+                      chunk, chunk_reads, standin_lib, monkeypatch)
+
+
+def _hold_higher_caps(high, chunk, chunk_reads, standin_lib, monkeypatch):
+    """K8 through the stand-in at the caps of `high`, above the chunk's:
+    equal to the plain loop there, reads kept that the chunk's caps send
+    to the host, and every read kept equal to the host search's and
+    `engine_ref`'s hits."""
     cfg, fm, args = chunk
     fms, seqs_l, rseqs_l, opt = chunk_reads
-    high = dataclasses.replace(cfg, iter_cap=3 * cfg.iter_cap)
     low = engine.run_search_plain(cfg, fm, *args, n_lanes=N_LANES)
     want = engine.run_search_plain(high, fm, *args, n_lanes=N_LANES)
     monkeypatch.setattr(kernels, "lib", lambda: standin_lib)
