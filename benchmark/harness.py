@@ -6,7 +6,9 @@ work (a shard) runs.  Each command runs as a process of its own
 (`child.py`), as a user or a pipeline's scatter step starts it, and is
 timed from its launch to its exit: nothing the program builds in one
 process is there for the next.  The window is a closed loop: a shard
-starts when the one before it has ended, until `seconds` have passed.
+starts when the one before it has ended, until `seconds` have passed;
+window shard i runs on written input i mod n, with outputs of its own,
+so the loop never runs out of inputs however fast the program gets.
 Untraced, the shard still running then is stopped and not counted;
 traced, it is finished (its device work is in the trace) and not counted.
 Then the loop checks what the window produced against the plain
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import pathlib
@@ -75,6 +78,14 @@ class View:
     trace: devtrace.Window | None
     traced_s: float         # the traced window, host clock, less the
                             # profiler's own stretches
+
+    def rate(self) -> float | None:
+        """The units of the shards that ended inside the window over the
+        time from the window's start to the last of those ends; None
+        where none ended."""
+        if not self.done or self.last_end <= 0:
+            return None
+        return sum(s["units"] for s in self.done) / self.last_end
 
     def kernel_ms(self, names: dict[str, str]) -> dict[str, float]:
         if self.trace is None:
@@ -164,20 +175,24 @@ def run_commands(ctx: Ctx, commands: list[tuple[str, list[str]]],
 
 
 def closed_loop(mode, ctx: Ctx, seconds: float, trace: bool, card: bool):
-    """Run shards one after another until `seconds` have passed; returns
-    (start, shards): each shard's start and end from the window's start,
+    """Run shards one after another until `seconds` have passed, window
+    shard i on written input i mod n; returns (start, shards): each
+    shard's start and end from the window's start, the input it ran on,
     its commands' runs, and what the mode reads from them."""
     shards = []
+    inputs = ctx.inputs["shards"]
     t_win = time.perf_counter()
-    for i, unit in enumerate(ctx.inputs["shards"]):
+    for i in itertools.count():
         if time.perf_counter() - t_win >= seconds:
             break
+        unit = inputs[i % len(inputs)]
         t0 = time.perf_counter()
         runs, cut = run_commands(
             ctx, mode.shard_commands(ctx, unit, i), trace, card,
             None if trace else t_win + seconds)
-        rec = {"index": i, "units": unit["units"], "runs": runs,
-               "start": t0 - t_win, "end": time.perf_counter() - t_win}
+        rec = {"index": i, "input": i % len(inputs), "units": unit["units"],
+               "runs": runs, "start": t0 - t_win,
+               "end": time.perf_counter() - t_win}
         if cut:
             rec["cut"] = True
             shards.append(rec)
@@ -188,11 +203,19 @@ def closed_loop(mode, ctx: Ctx, seconds: float, trace: bool, card: bool):
             rec["error"] = failed[0]["err"][-4000:]
         rec.update(mode.shard_result(ctx, unit, runs))
         shards.append(rec)
-    if time.perf_counter() - t_win < seconds and \
-            not any(s.get("rc") for s in shards):
-        raise RuntimeError(f"the traffic's {len(ctx.inputs['shards'])} "
-                           f"shards ended before the {seconds} s window")
     return t_win, shards
+
+
+def stretches(spans: list) -> str:
+    """The seconds of each span just below a command's root span, summed
+    over batches (`[name, parent, batch, first_start, last_end, total_s,
+    self_s, count]` records), for the per-shard lines."""
+    roots = {r[0] for r in spans if r[1] is None}
+    total: dict[str, float] = {}
+    for r in spans:
+        if r[1] in roots:
+            total[r[0]] = total.get(r[0], 0.0) + r[5]
+    return ", ".join(f"{n} {v:.3f}" for n, v in total.items())
 
 
 def window_trace(shards: list, t_win: float, t_end: float
@@ -298,12 +321,14 @@ def run_cell(cfg: dict, traffic: dict, metrics: list[dict], seed: int,
             result["breakdown"] = {"device_ops": tr.device_ops(),
                                    "idle_gaps": tr.idle_gaps()}
         for s in shards:
-            say(f"shard {s['index']}: {s['start']:.3f}-{s['end']:.3f} s, "
+            say(f"shard {s['index']} (input {s['input']}): {s['start']:.3f}-"
+                f"{s['end']:.3f} s, "
                 + ("cut at the window's close" if s.get("cut") else
                    f"rc {s.get('rc')}, " + ", ".join(
                        f"{k} {s.get('stats', {}).get(k)}"
                        for k in ("search_s", "reads", "host_reads",
-                                 "fallback_reads", "fallback_by_cause"))))
+                                 "fallback_reads", "fallback_by_cause"))
+                   + "; " + stretches(s.get("stats", {}).get("spans", []))))
             for r in s["runs"]:
                 rep = r["report"]
                 if "t_main" in rep:

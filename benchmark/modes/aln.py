@@ -8,12 +8,14 @@ program's libraries are built (in the first run of a checkout) and its
 kernels have run at the cell's shapes.  A shard is one process of
 `aln <aln_args> -f <out> <prefix> <shard>`, as a pipeline's scatter step
 runs `aln` over one lane's shard; its stderr is kept for the metrics
-(`[aln] stats`).
+(`[aln] stats`).  Window shard i reads written shard i mod n and writes a
+.sai of its own (`window<i>.sai`).
 
 The check: every shard that ended in the window has the .sai header of
-the configuration's options and one record a read; a sample of the
-window's reads, drawn from the seed, has records byte-equal to the plain
-reference's (`refaln` over `refindex`), computed after the window.
+the configuration's options and one record for each read of its input;
+a sample of the window's records, drawn from the seed, is byte-equal to
+the plain reference's for the read it belongs to (`refaln` over
+`refindex`), computed after the window.
 """
 
 from __future__ import annotations
@@ -47,10 +49,14 @@ def make_inputs(ctx) -> None:
         min(len(jobs), os.cpu_count() or 1))
     with pool:
         made = pool.map(sim.write_shard, jobs, chunksize=1)
-    ctx.inputs["shards"] = [
-        {"units": len(reads), "fq": job[4], "reads": reads,
-         "sai": ctx.tmp / f"shard{s}.sai"}
-        for s, (job, reads) in enumerate(zip(jobs[:-1], made))]
+    ctx.inputs["shards"] = [{"units": len(reads), "fq": job[4],
+                             "reads": reads}
+                            for job, reads in zip(jobs[:-1], made)]
+
+
+def _sai(ctx, index: int):
+    """The .sai of window shard `index`."""
+    return ctx.tmp / f"window{index}.sai"
 
 
 def _aln(ctx, fq, sai) -> list[str]:
@@ -71,7 +77,7 @@ def warmup_commands(ctx) -> list[tuple[str, list[str]]]:
 
 
 def shard_commands(ctx, unit, index: int) -> list[tuple[str, list[str]]]:
-    return [(f"aln{index}", _aln(ctx, unit["fq"], unit["sai"]))]
+    return [(f"aln{index}", _aln(ctx, unit["fq"], _sai(ctx, index)))]
 
 
 def shard_result(ctx, unit, runs: list[dict]) -> dict:
@@ -88,8 +94,9 @@ def check(ctx, view) -> list[tuple[str, int, int]]:
     bad_header = missing = 0
     records, reads = [], []
     for s in view.done:
-        unit = ctx.inputs["shards"][s["index"]]
-        data = unit["sai"].read_bytes() if unit["sai"].exists() else b""
+        unit = ctx.inputs["shards"][s["input"]]
+        sai = _sai(ctx, s["index"])
+        data = sai.read_bytes() if sai.exists() else b""
         head, recs, left = refaln.split_records(data)
         bad_header += head != header
         missing += abs(len(recs) - unit["units"]) + (left > 0)

@@ -12,6 +12,9 @@ tests do, and the check must then read `correct` false.
 - `unchanged`: each read's hits left at the search's start state (none).
 - `half_batch`: half of the batch left out.
 - `altered`: a read's first hit altered where it is produced.
+- `misordered`: each read given the hits of the next read (the last the
+  first's), as a merge of the card's and the host's answers in the wrong
+  order would: every answer is one the search found, on the wrong read.
 """
 
 from __future__ import annotations
@@ -63,17 +66,28 @@ def altered(arg, cli_args) -> None:
     _wrap(make)
 
 
+def misordered(arg, cli_args) -> None:
+    def make(orig):
+        def align_batch(self, seqs, rseqs, opt):
+            out = orig(self, seqs, rseqs, opt)
+            return out[1:] + out[:1]
+        return align_batch
+    _wrap(make)
+
+
 class _NoFallbackPool:
     """The engine's host pool with the overflow fallback's jobs answered
-    at once with nothing; the host share's jobs run as before."""
+    at once with nothing; the host share's jobs run as before.  A job is
+    `submit(engine._native_job, span name, batch, seqs, rseqs, opt)`, and
+    the span names an overflow job `aln.fallback_search`."""
 
-    def __init__(self, pool, fallback_fn):
-        self.pool, self.fallback_fn = pool, fallback_fn
+    def __init__(self, pool):
+        self.pool = pool
 
     def submit(self, fn, *args):
-        if fn is self.fallback_fn:
+        if args[0] == "aln.fallback_search":
             fut = concurrent.futures.Future()
-            fut.set_result([None] * len(args[1]))
+            fut.set_result([None] * len(args[2]))
             return fut
         return self.pool.submit(fn, *args)
 
@@ -92,7 +106,7 @@ def no_fallback(arg, cli_args) -> None:
     def align_batch(self, seqs, rseqs, opt):
         found.clear()
         pool = self._pool
-        self._pool = _NoFallbackPool(pool, engine.native_align_batch)
+        self._pool = _NoFallbackPool(pool)
         try:
             out = orig(self, seqs, rseqs, opt)
         finally:
@@ -129,10 +143,11 @@ def ref_max_pops(arg, cli_args) -> None:
 
 
 PLANTS = {"unchanged": unchanged, "half_batch": half_batch,
-          "altered": altered, "no_fallback": no_fallback,
-          "ref_max_pops": ref_max_pops}
+          "altered": altered, "misordered": misordered,
+          "no_fallback": no_fallback, "ref_max_pops": ref_max_pops}
 
 
-def plant(spec: str, cli_args: list[str]) -> None:
-    name, _, arg = spec.partition(":")
+def plant(given: str, cli_args: list[str]) -> None:
+    """Plant `NAME[:ARG]`, one of `PLANTS`."""
+    name, _, arg = given.partition(":")
     PLANTS[name](arg or None, cli_args)

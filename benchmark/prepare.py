@@ -1,14 +1,19 @@
-"""Make a configuration's genome, its FASTA, the program's index of it and
-the reference's own index, once per checkout, under `.cache/<config>/`.
+"""Make a configuration's dbs, each its FASTA, the files its recipe
+writes beside it, the program's index of it and the reference's own
+index, once per checkout, under `.cache/<config>/`.
 
     python3 -m benchmark.prepare CONFIG_FILE
 
-`ready.json`, written last, holds a hash of the configuration's genome
-recipes and of the sources that carry them out: a cache whose hash
-differs is made again.  The genome comes from the configuration's own
-seed, never from a run's `--seed`.  The program's index is made by its
-own `index` command; the reference's (`refindex.build`) from the same
-FASTA, on the card where there is one.
+A db's recipe is `recipes/<recipe>.py`: its `make(db, rng, made)` returns
+the db's contigs and the files to write beside its FASTA ({suffix:
+bytes}), from the db's own seed (never a run's `--seed`) and the dbs made
+before it (`made`: name -> contigs), so a db can name an earlier one as
+its `source`.  The dbs are made in the configuration's order.
+`ready.json`, written last, holds a hash of the dbs' entries, of their
+recipes' files and of the sources that carry them out: a cache whose
+hash differs is made again.  The program's index is made by its own
+`index` command; the reference's (`refindex.build`) from the same FASTA,
+on the card where there is one.
 """
 
 from __future__ import annotations
@@ -30,11 +35,13 @@ def cache_dir(cfg: dict) -> pathlib.Path:
 
 
 def fingerprint(cfg: dict) -> str:
-    """A hash of what the cache is made from: the dbs' recipes and the
-    sources that carry them out."""
+    """A hash of what the cache is made from: the dbs' entries, their
+    recipes' files and the sources that carry them out."""
     h = hashlib.sha256(json.dumps(cfg["dbs"], sort_keys=True).encode())
     for name in ("sim.py", "refindex.py", "prepare.py"):
         h.update((spec.HERE / name).read_bytes())
+    for recipe in sorted({db["recipe"] for db in cfg["dbs"]}):
+        h.update(spec.recipe_file(recipe).read_bytes())
     return h.hexdigest()
 
 
@@ -44,14 +51,12 @@ def is_ready(cfg: dict) -> bool:
         json.loads(ready.read_text()).get("fingerprint") == fingerprint(cfg)
 
 
-def db_contigs(db: dict) -> list:
-    """The FASTA contigs of one db by its recipe."""
-    rng = np.random.default_rng(db["seed"])
-    if db["recipe"] == "make_genome":
-        seq = sim.make_genome(rng, db["length"], db["tandem_copies"],
-                              db["segdups"])
-        return [(db["contig"], seq)]
-    raise ValueError(f"unknown genome recipe {db['recipe']!r}")
+def db_contigs(db: dict, made: dict) -> tuple[list, dict]:
+    """One db by its recipe: its FASTA contigs [(name, uint8 ASCII
+    bases)] and the files to write beside the FASTA ({suffix: bytes});
+    `made`: the contigs of the dbs made before it, by name."""
+    return spec.recipe(db["recipe"]).make(
+        db, np.random.default_rng(db["seed"]), made)
 
 
 def say(msg: str) -> None:
@@ -64,12 +69,15 @@ def prepare(cfg: dict, device: str) -> None:
         shutil.rmtree(out)
     out.mkdir(parents=True)
     from ibwa_tpu_torch import cli
-    times = {}
+    times, made = {}, {}
     for db in cfg["dbs"]:
         t0 = time.perf_counter()
-        contigs = db_contigs(db)
+        contigs, extra = db_contigs(db, made)
+        made[db["name"]] = contigs
         fa = out / f"{db['name']}.fa"
         sim.write_fasta(fa, contigs)
+        for suffix, data in extra.items():
+            fa.with_name(fa.name + suffix).write_bytes(data)
         np.save(out / f"{db['name']}.bases.npy",
                 np.concatenate([c for _, c in contigs]))
         t1 = time.perf_counter()

@@ -2,8 +2,9 @@
 
 A configuration is the JSON file its entry names; a traffic mix is
 `traffic/<name>.json`; the loop a mix drives is `modes/<mode>.py`; a metric
-is read by `metrics/<name>.py`.  A later cell, configuration, mix or metric
-is a new file and a new entry: nothing here changes.
+is read by `metrics/<name>.py`; a db's genome recipe is
+`recipes/<recipe>.py`.  A later cell, configuration, mix, metric or
+recipe is a new file and a new entry: nothing here changes.
 """
 
 from __future__ import annotations
@@ -68,3 +69,11 @@ def mode(name: str):
 def reader(metric: str):
     return _module(HERE / "metrics" / f"{metric}.py",
                    "benchmark_metric_" + metric.replace(".", "_"))
+
+
+def recipe_file(name: str) -> pathlib.Path:
+    return HERE / "recipes" / f"{name}.py"
+
+
+def recipe(name: str):
+    return _module(recipe_file(name), f"benchmark_recipe_{name}")

@@ -14,6 +14,7 @@ import pytest
 
 from benchmark import (devtrace, harness, refaln, refcheck, refindex, sim,
                        spec, yardstick)
+from benchmark.recipes.make_genome import make_genome
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 
@@ -24,8 +25,8 @@ def _reads(seed: int, genome: np.ndarray) -> np.ndarray:
 
 
 def test_sim_bytes_repeat_per_seed_and_differ_across_seeds(tmp_path):
-    genome = sim.make_genome(np.random.default_rng(3), 50_000, 10, 1)
-    again = sim.make_genome(np.random.default_rng(3), 50_000, 10, 1)
+    genome = make_genome(np.random.default_rng(3), 50_000, 10, 1)
+    again = make_genome(np.random.default_rng(3), 50_000, 10, 1)
     assert genome.tobytes() == again.tobytes()
     files = []
     for i, seed in enumerate((2**31 + 77, 2**31 + 77, 5)):
@@ -45,12 +46,13 @@ def _view(shards, seconds=10.0, trace=None, traced_s=0.0):
                         trace, traced_s)
 
 
-def test_shard_rate_on_a_synthetic_timeline():
+@pytest.mark.parametrize("metric", ["aln_reads_per_s", "pairs_per_s"])
+def test_shard_rate_on_a_synthetic_timeline(metric):
     shards = [{"index": i, "units": 100, "start": 3.0 * i,
                "end": 3.0 * (i + 1)} for i in range(4)]   # the 4th ends at 12
-    rate = spec.reader("aln_reads_per_s").read(_view(shards))
+    rate = spec.reader(metric).read(_view(shards))
     assert rate == pytest.approx(300 / 9.0)
-    assert spec.reader("aln_reads_per_s").read(_view(shards[3:])) is None
+    assert spec.reader(metric).read(_view(shards[3:])) is None
 
 
 def test_idle_share_from_a_trace_with_overlapping_ops():
@@ -113,7 +115,7 @@ def _hand_rows(fm, seq: np.ndarray) -> set:
 
 def test_width_pass_bytes_against_a_hand_count(tmp_path):
     import torch
-    genome = sim.make_genome(np.random.default_rng(4), 40_000, 10, 1)
+    genome = make_genome(np.random.default_rng(4), 40_000, 10, 1)
     refindex.build(sim.CODE[genome], tmp_path, "cpu")
     fms = refindex.load(tmp_path)
     reads = _reads(6, genome)[:5]

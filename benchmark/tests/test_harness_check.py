@@ -9,7 +9,8 @@ from benchmark import harness, spec
 
 
 @pytest.mark.parametrize("plant", [None, "unchanged", "half_batch",
-                                   "altered", "ref_max_pops:24"])
+                                   "altered", "misordered",
+                                   "ref_max_pops:24"])
 def test_a_broken_timed_path_reads_not_correct(tiny, plant):
     cfg, t = tiny
     metrics = spec.Bench().metrics("chr1_aln_err2", False)
